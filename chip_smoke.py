@@ -6,47 +6,93 @@
 Phases, one JSON line each (flushed, so a run that is cut shows where it
 stopped):
 
-1. device   the card, and its name and power limit from nvidia-smi;
-2. build    nvcc builds dsac_tpu_torch/csrc/*.cu into one library;
-3. kernels  each CUDA kernel against its plain PyTorch version on the
-            card, at the serve shapes of a batch of 8 frames, with its
-            bar; `ms` and `plain_ms` are medians of 20 CUDA-event timings
-            (of 10 back-to-back kernel calls, of 1 plain call),
-            `device_ms` the kernel's own device time from torch.profiler;
-4. serve    dsac_tpu_torch.cli.serve.main on the 64 fixture frames
-            (queue 8 x batch 8, verify_topk 4, 16 attempts) with the
-            trained weights of artifacts/coord_e2e.npz; the kernels'
-            launch counters are set to 0 just before and read just after.
+1. device         the card, and its name and power limit from nvidia-smi;
+2. build          nvcc builds dsac_tpu_torch/csrc/*.cu into one library;
+3. kernels        each CUDA kernel against its plain PyTorch version on the
+                  card, at the shapes of a batch of 8 frames, with its bar;
+                  `ms` and `plain_ms` are medians of 20 CUDA-event timings
+                  (of 10 back-to-back kernel calls, of 1 plain call),
+                  `device_ms` the kernel's own device time from
+                  torch.profiler; and the stepwise refiner (one IRLS-stats
+                  launch per step) against the refine kernel at the
+                  refine-all shape (256 poses a frame), at the bars of
+                  tests/test_gn_pallas.py:112-115;
+4. serve          dsac_tpu_torch.cli.serve.main on the 64 fixture frames
+                  (queue 8 x batch 8, verify_topk 4, 16 attempts,
+                  two-phase sampling, fused soft-inlier scoring) with the
+                  trained weights of artifacts/coord_e2e.npz;
+5. serve_cnn      the same with --no-fused-scoring: the diff-map kernel
+                  and the score CNN of artifacts/score_e2e.npz;
+6. serve_fixed_t  --no-fused-scoring --no-two-phase, queue 2, one pass:
+                  fixed-T sampling through the P3P kernel;
+7. test_ransac    dsac_tpu_torch.cli.test_ransac on the 64 fixture frames
+                  (--fused-refine --rdraw 0 --check-refine: the refine
+                  kernel on all 256 hypotheses of each frame, and the
+                  stepwise refiner beside it, which must agree with it at
+                  the served hypothesis to 1e-2 mm and 1e-5), then once
+                  more with --select inlier.
 
-Then nvidia-smi's line, one JSON line of per-kernel numbers, and the last
-line {"ok": true, "device": {...}}.  Any failed bar or error exits
-non-zero before that last line.  Without a CUDA device, or without the
-repository around this file, it fails.
+Before each of phases 4-7 the kernels' launch counters are set to 0, and
+they are read just after it; each phase fails if a kernel of its path was
+never launched.  Then nvidia-smi's line, one JSON line of per-kernel
+numbers (launches summed over phases 4-7), and the last line
+{"ok": true, "device": {...}}.  Any failed bar or error exits non-zero
+before that last line.  Without a CUDA device, or without the repository
+around this file, it fails.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
 
 # Peaks of one H100 SXM (NVIDIA data sheet): device memory rate and f32
-# rate outside the tensor cores.  All three kernels do f32 arithmetic.
+# rate outside the tensor cores.  All five kernels do f32 arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 # f32 operations (add, mul, div, sqrt, compare, select, transcendental:
-# one each) counted from the kernels' sources; the head of each
-# dsac_tpu_torch/csrc/*.cu states the same count with its breakdown.
+# one each) that each function needs, counted from the kernels' sources;
+# the head of each dsac_tpu_torch/csrc/*.cu (and irls_stats.cuh) states
+# the same count with its breakdown.  IRLS_OPS_PER_PIXEL is the IRLS
+# statistics of one pose at one pixel: one step of the refine kernel, one
+# pass of the IRLS-stats kernel.
 P3P_OPS_PER_LANE = 1500
 SCORE_OPS_PER_PAIR = 42
-REFINE_OPS_PER_PIXEL_STEP = 194
+DIFFMAP_OPS_PER_PAIR = 36
+IRLS_OPS_PER_PIXEL = 165
 REFINE_OPS_PER_SOLVE = 400
 
 SAMPLES = 20  # CUDA-event timings per median
 
 B, H, N, K, T, TOPK = 8, 256, 1600, 32, 16, 4  # serve shapes per batch
+STEPS = 16  # IRLS steps of a refinement (8 reweightings x 2 GN steps)
+
+# Accuracy at 5 cm / 5 deg of the reference's test_ransac forward pass
+# (dsac_tpu process_frame, refine_all, score CNN, unfused fixed-T
+# sampling, fused refine, argmax) on the 64 fixture frames, on a CPU:
+# `PYTHONPATH=. python tests/test_torch_pipeline_cnn.py 64`.  The port's
+# test_ransac phase may lose at most 2 of the 64 frames against it.
+REF_TEST_RANSAC_ACCURACY = 0.96875
+TEST_RANSAC_SLACK = 2 / 64
+
+# On the serve path's P3P pool a kernel may miss its bar against the
+# plain version in f64 on at most this many more elements than the plain
+# version's own f32 result does.
+MISS_SLACK = 2
+
+# The stepwise refiner against the refine kernel at the hypothesis that
+# test_ransac serves, on every frame (tests/test_gn_pallas.py:112-115).
+STEPS_VS_FUSED_DT_MM, STEPS_VS_FUSED_DR = 1e-2, 1e-5
+
+# the kernels each phase's path runs
+PATHS = {"serve": ("p3p", "soft_inlier_score", "refine_irls"),
+         "serve_cnn": ("p3p", "diffmap", "refine_irls"),
+         "serve_fixed_t": ("p3p", "diffmap", "refine_irls"),
+         "test_ransac": ("diffmap", "refine_irls", "irls_stats")}
 
 
 def emit(obj: dict) -> None:
@@ -98,14 +144,82 @@ def make_problem(dev, gen):
     return cam, gt, coords.contiguous(), pix
 
 
-def check_kernels(dev) -> tuple[list[dict], list[str]]:
+def reference_problem(dev, gen):
+    """B frames of H poses and N points, drawn as the reference's kernel
+    tests draw them (tests/test_pallas_kernels.py:_random_problem,
+    tests/test_gn_pallas.py:_problem): every point 1-4 m in front of the
+    camera."""
+    import torch
+    from dsac_tpu_torch.geometry.rotation import so3_exp
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    R = so3_exp(torch.randn(B, H, 3, generator=gen, device=dev) * 0.5)
+    t = torch.randn(B, H, 3, generator=gen, device=dev) * 300.0
+    t[..., 2] -= 2500.0
+    coords = torch.stack([uniform(-1000, 1000, B, N),
+                          uniform(-800, 800, B, N),
+                          uniform(-500, 500, B, N)], dim=-1)
+    pix = torch.stack([uniform(0, 640, B, N), uniform(0, 480, B, N)], dim=-1)
+    return R.contiguous(), t.contiguous(), coords.contiguous(), pix
+
+
+def excess(a, b, rtol: float, atol: float) -> float:
+    """max(|a - b| - (atol + rtol |b|)): <= 0 where a is within the bar."""
+    return float(((a - b).abs() - (atol + rtol * b.abs())).max())
+
+
+def missed(x, plain64, rtol: float, atol: float):
+    """Where x misses the bar against the plain version in f64."""
+    return (x.double() - plain64).abs() > atol + rtol * plain64.abs()
+
+
+def stats_f64_with_f32(args, cam, part: str):
+    """The IRLS statistics summed in f64 from f64 inputs, but with one
+    intermediate taken from the plain version's f32 computation: the
+    residuals ``part="r"`` (and the weights computed from them) or the
+    Jacobian ``part="J"``.  The elements on which such a result misses the
+    bar are those that the f32 rounding of that intermediate alone puts
+    out of reach."""
+    import torch
+    from dsac_tpu_torch.geometry.gn import (_residuals_and_jac,
+                                            soft_inlier_weights)
+    from dsac_tpu_torch.geometry.pose import Pose
+    from dsac_tpu_torch.ops.gn_cuda import _COLS, _ROWS
+
+    def residuals_and_jac(dtype):
+        R, t, coords, pix = (a.to(dtype) for a in args)
+        r, J = _residuals_and_jac(Pose(R, t), coords[:, None], pix[:, None],
+                                  cam)
+        return r.double(), J.double()
+
+    r, J = residuals_and_jac(torch.float64)
+    r32, J32 = residuals_and_jac(torch.float32)
+    if part == "r":
+        r = r32
+    else:
+        J = J32
+    err = torch.clamp(torch.sqrt(torch.sum(r * r, dim=-1) + 1e-8), max=100.0)
+    w = soft_inlier_weights(err, 10.0, 1.0)
+    JtJ = torch.einsum("...n,...nki,...nkj->...ij", w, J, J)
+    Jtr = torch.einsum("...n,...nki,...nk->...i", w, J, r)
+    return torch.cat([JtJ[..., _ROWS, _COLS], Jtr, w.sum(-1, keepdim=True)],
+                     dim=-1)
+
+
+def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
     import torch
     from dsac_tpu_torch.utils.timing import events_ms, profiled_ms
     from dsac_tpu_torch.geometry.pose import Pose
     from dsac_tpu_torch.geometry.rotation import so3_exp
-    from dsac_tpu_torch.ops.diffmap_cuda import (soft_inlier_scores,
+    from dsac_tpu_torch.ops.diffmap_cuda import (diffmaps, diffmaps_ref,
+                                                 soft_inlier_scores,
                                                  soft_inlier_scores_ref)
-    from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused, refine_pose_ref
+    from dsac_tpu_torch.ops.gn_cuda import (irls_stats, irls_stats_ref,
+                                            refine_pose_fused,
+                                            refine_pose_fused_steps,
+                                            refine_pose_ref, unpack_stats)
     from dsac_tpu_torch.ops.p3p_cuda import p3p_solve, p3p_solve_ref
     from dsac_tpu_torch.ops.sampling import gather_rows
 
@@ -207,7 +321,7 @@ def check_kernels(dev) -> tuple[list[dict], list[str]]:
     steps = 16
     b_ms, b_by = bound_ms(
         B * TOPK * 12 * 4 + B * N * 5 * 4 + B * TOPK * 13 * 4,
-        B * TOPK * steps * (N * REFINE_OPS_PER_PIXEL_STEP
+        B * TOPK * steps * (N * IRLS_OPS_PER_PIXEL
                             + REFINE_OPS_PER_SOLVE))
     rows.append({"name": "refine_irls", "route": "cuda",
                  "source": "dsac_tpu_torch/csrc/refine.cu",
@@ -220,7 +334,194 @@ def check_kernels(dev) -> tuple[list[dict], list[str]]:
                  "plain_ms": events_ms(lambda: refine_pose_ref(
                      poses, coords, pix, cam), 1, SAMPLES),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    return rows, failures
+
+    # ---- diffmap and irls_stats: B x H poses x N pixels, at the bars of
+    # the reference's kernel tests on the inputs those tests draw, and on
+    # the phase-1 pool of the serve path ----
+    Rr, tr, cr, pr = reference_problem(dev, gen)
+
+    def diffmap():
+        return diffmaps(R, t, coords, pix, cam)
+
+    # On the pool a few elements are out of f32's reach in either version:
+    # there the bar is held against the plain version in f64, and the
+    # kernel may miss it on at most MISS_SLACK more elements than the plain
+    # version's own f32 result.
+    worst = {}
+    for name, args in (("reference", (Rr, tr, cr, pr)),
+                       ("pool", (R, t, coords, pix))):
+        kd, rd = diffmaps(*args, cam), diffmaps_ref(*args, cam)
+        worst[name] = float((kd - rd).abs().max())
+        if not bool(torch.isfinite(kd).all()):
+            failures.append(f"diffmap: non-finite output ({name})")
+        if name == "reference":
+            ex = excess(kd, rd, 1e-4, 1e-2)
+            if not ex <= 0.0:
+                failures.append(f"diffmap: exceeds atol 1e-2 + rtol 1e-4 "
+                                f"by {ex}")
+        else:
+            r64 = diffmaps_ref(*(a.double() for a in args), cam)
+            n_k = int(missed(kd, r64, 1e-4, 1e-2).sum())
+            n_p = int(missed(rd, r64, 1e-4, 1e-2).sum())
+            worst["pool_misses"] = [n_k, n_p]
+            if not n_k <= n_p + MISS_SLACK:
+                failures.append(f"diffmap (pool): {n_k} elements miss the "
+                                f"bar against f64, the plain version {n_p}")
+    b_ms, b_by = bound_ms(B * H * 12 * 4 + B * N * 5 * 4 + B * H * N * 4,
+                          B * H * N * DIFFMAP_OPS_PER_PAIR)
+    rows.append({"name": "diffmap", "route": "cuda",
+                 "source": "dsac_tpu_torch/csrc/diffmap.cu",
+                 "replaces": "dsac_tpu/ops/diffmap_pallas.py:32",
+                 "max_abs_err": worst["reference"],
+                 "pool_max_abs_err": worst["pool"],
+                 "pool_misses_kernel_plain": worst["pool_misses"],
+                 "bar": "rtol 1e-4, atol 1e-2 on the reference problem; on "
+                        "the pool, misses against f64 <= the plain "
+                        f"version's + {MISS_SLACK}",
+                 "shapes": f"B={B} H={H} N={N}",
+                 "ms": events_ms(diffmap, 10, SAMPLES),
+                 "device_ms": profiled_ms(diffmap, 20, "diffmap_kernel"),
+                 "plain_ms": events_ms(lambda: diffmaps_ref(
+                     R, t, coords, pix, cam), 1, SAMPLES),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    def stats():
+        return irls_stats(R, t, coords, pix, cam)
+
+    gaps = {}
+    for name, args in (("reference", (Rr, tr, cr, pr)),
+                       ("pool", (R, t, coords, pix))):
+        ks = unpack_stats(irls_stats(*args, cam))
+        rs = unpack_stats(irls_stats_ref(*args, cam))
+        if name == "pool":
+            r64 = unpack_stats(irls_stats_ref(*(a.double() for a in args),
+                                              cam))
+            part32 = {p: unpack_stats(stats_f64_with_f32(args, cam, p))
+                      for p in ("r", "J")}
+        for i, (q, rtol, atol) in enumerate((("JtJ", 2e-3, 2.0),
+                                             ("Jtr", 2e-3, 2.0),
+                                             ("n_in", 1e-3, 0.05))):
+            gaps[f"{name}_{q}"] = float((ks[i] - rs[i]).abs().max())
+            if name == "reference":
+                ex = excess(ks[i], rs[i], rtol, atol)
+                if not ex <= 0.0:
+                    failures.append(f"irls_stats: {q} exceeds atol {atol} "
+                                    f"+ rtol {rtol} by {ex}")
+            else:
+                mk = missed(ks[i], r64[i], rtol, atol)
+                mp = missed(rs[i], r64[i], rtol, atol)
+                n_k, n_p = int(mk.sum()), int(mp.sum())
+                # which f32 intermediate puts the missed elements out of
+                # reach: each count is (misses, of them also the kernel's)
+                cause = {}
+                for p, label in (("r", "f32_residual"), ("J", "f32_jacobian")):
+                    mv = missed(part32[p][i], r64[i], rtol, atol)
+                    cause[label] = [int(mv.sum()), int((mv & mk).sum())]
+                gaps[f"pool_{q}_misses"] = {
+                    "kernel": n_k, "plain": n_p,
+                    "both": int((mk & mp).sum()), **cause}
+                if not n_k <= n_p + MISS_SLACK:
+                    failures.append(f"irls_stats (pool): {q}: {n_k} "
+                                    "elements miss the bar against f64, "
+                                    f"the plain version {n_p}")
+    b_ms, b_by = bound_ms(B * H * 12 * 4 + B * N * 5 * 4 + B * H * 28 * 4,
+                          B * H * N * IRLS_OPS_PER_PIXEL)
+    rows.append({"name": "irls_stats", "route": "cuda",
+                 "source": "dsac_tpu_torch/csrc/irls_stats.cu",
+                 "replaces": "dsac_tpu/ops/gn_pallas.py:45",
+                 "max_abs_err": gaps["reference_n_in"], **gaps,
+                 "bar": "n_in rtol 1e-3 atol 0.05; JtJ, Jtr rtol 2e-3 "
+                        "atol 2.0 on the reference problem; on the pool, "
+                        "misses against f64 <= the plain version's + "
+                        f"{MISS_SLACK}",
+                 "shapes": f"B={B} P={H} N={N}",
+                 "ms": events_ms(stats, 10, SAMPLES),
+                 "device_ms": profiled_ms(stats, 20, "irls_stats_kernel"),
+                 "plain_ms": events_ms(lambda: irls_stats_ref(
+                     R, t, coords, pix, cam), 1, SAMPLES),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # ---- stepwise refiner vs refine kernel at the refine-all shape ----
+    pool = Pose(R, t)
+    a, na = refine_pose_fused(pool, coords, pix, cam)
+    c, nc = refine_pose_fused_steps(pool, coords, pix, cam, steps=STEPS)
+    dt = float((a.t - c.t).abs().max())
+    dRr = float((a.R - c.R).abs().max())
+    dn = excess(na, nc, 1e-4, 0.0)
+    if not (dt <= 1e-2 and dRr <= 1e-5 and dn <= 0.0):
+        failures.append(f"refine steps vs fused: |dt| {dt} (bar 1e-2 mm), "
+                        f"|dR| {dRr} (bar 1e-5), n_in beyond rtol 1e-4 by "
+                        f"{dn}")
+    check = {"name": "refine_steps_vs_fused", "shapes": f"B={B} P={H} "
+             f"N={N} steps={STEPS}", "max_abs_dt_mm": dt,
+             "max_abs_dR": dRr,
+             "max_abs_dn_in": float((na - nc).abs().max()),
+             "bar": "|dt| <= 1e-2 mm, |dR| <= 1e-5, n_in rtol 1e-4 "
+                    "(tests/test_gn_pallas.py:112-115)",
+             "refine_all_ms": events_ms(
+                 lambda: refine_pose_fused(pool, coords, pix, cam), 10,
+                 SAMPLES),
+             "refine_all_device_ms": profiled_ms(
+                 lambda: refine_pose_fused(pool, coords, pix, cam), 10,
+                 "refine_kernel"),
+             "steps_ms": events_ms(lambda: refine_pose_fused_steps(
+                 pool, coords, pix, cam, steps=STEPS), 1, SAMPLES)}
+    return rows, failures, check
+
+
+def run_phase(fn, kernels: dict) -> tuple[dict, dict, float]:
+    """Drive one path with every launch counter set to 0 just before it;
+    returns (its result, the counters just after, seconds)."""
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in kernels.items()}
+    return res, launches, seconds
+
+
+def serve_problems(res: dict, launches: dict, path: tuple,
+                   batches: int) -> list[str]:
+    problems = [f"{k} kernel never launched" for k in path
+                if launches[k] == 0]
+    if not res["accuracy_5cm5deg"] >= 0.95:
+        problems.append(f"accuracy {res['accuracy_5cm5deg']} < 0.95")
+    if not res["poses_finite"]:
+        problems.append("non-finite served pose")
+    if "diffmap" in path and launches["diffmap"] != batches:
+        problems.append(f"diffmap launched {launches['diffmap']} times for "
+                        f"{batches} served batches")
+    return problems
+
+
+def test_ransac_problems(res: dict, launches: dict, path: tuple,
+                         frames: int) -> list[str]:
+    problems = [f"{k} kernel never launched" for k in path
+                if launches[k] == 0]
+    for k, want in (("refine_irls", frames), ("diffmap", frames),
+                    ("irls_stats", frames * STEPS)):
+        if launches[k] != want:
+            problems.append(f"{k} launched {launches[k]} times, not {want}")
+    check = res["refine_check"]
+    if not (check["served_max_abs_dt_mm"] <= STEPS_VS_FUSED_DT_MM
+            and check["served_max_abs_dR"] <= STEPS_VS_FUSED_DR):
+        problems.append(
+            "stepwise refiner vs refine kernel at the served hypothesis: "
+            f"|dt| {check['served_max_abs_dt_mm']} (bar "
+            f"{STEPS_VS_FUSED_DT_MM} mm), |dR| {check['served_max_abs_dR']} "
+            f"(bar {STEPS_VS_FUSED_DR})")
+    bar = REF_TEST_RANSAC_ACCURACY - TEST_RANSAC_SLACK
+    if not res["accuracy_5cm5deg"] >= bar:
+        problems.append(f"accuracy {res['accuracy_5cm5deg']} < {bar} "
+                        f"(reference {REF_TEST_RANSAC_ACCURACY} less 2 of "
+                        "64 frames)")
+    if not all(math.isfinite(res[k]) for k in ("mean_expected_loss",
+                                               "mean_entropy_bits")):
+        problems.append("non-finite expected loss or entropy")
+    if not res["all_finite"]:
+        problems.append("non-finite per-frame result")
+    return problems
 
 
 def main() -> int:
@@ -233,7 +534,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port; absent when this file stands alone
-    from dsac_tpu_torch.cli import serve
+    from dsac_tpu_torch.cli import serve, test_ransac
     from dsac_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -248,9 +549,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": seconds, "library": path.name})
 
     t0 = time.perf_counter()
-    rows, failures = check_kernels(dev)
+    rows, failures, refine_check = check_kernels(dev)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "kernels": rows, "failures": failures,
+          "kernels": rows, "refine_check": refine_check,
+          "failures": failures,
           "check_launches": {name: fn.launches
                              for name, fn in serve.KERNELS.items()}})
     if failures:
@@ -258,28 +560,56 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    for fn in serve.KERNELS.values():
-        fn.launches = 0
+    serve_args = ["--synthetic", "64", "--verify-topk", "4", "--attempts",
+                  "16", "--batch", "8", "--device", "cuda"]
+    phases = {
+        "serve": (serve.main, serve_args + ["--queue", "8", "--reps", "3"],
+                  (1 + 3) * 8),
+        "serve_cnn": (serve.main, serve_args + [
+            "--queue", "8", "--reps", "3", "--no-fused-scoring"], (1 + 3) * 8),
+        "serve_fixed_t": (serve.main, serve_args + [
+            "--queue", "2", "--reps", "1", "--no-fused-scoring",
+            "--no-two-phase"], (1 + 1) * 2),
+        "test_ransac": (test_ransac.main, [
+            "--synthetic", "64", "--fused-refine", "--rdraw", "0",
+            "--check-refine", "--device", "cuda"], 64),
+    }
+    total = {k: 0 for k in serve.KERNELS}
+    by_phase, results = {}, {}
+    for name, (entry, argv, batches) in phases.items():
+        res, launches, seconds = run_phase(lambda: entry(argv),
+                                           serve.KERNELS)
+        emit({"phase": name, "seconds": seconds, "launches": launches})
+        results[name], by_phase[name] = res, launches
+        for k, n in launches.items():
+            total[k] += n
+        find = (test_ransac_problems if name == "test_ransac"
+                else serve_problems)
+        problems = find(res, launches, PATHS[name], batches)
+        if problems:
+            print(f"chip_smoke: {name} failed: " + "; ".join(problems),
+                  file=sys.stderr)
+            return 1
+
     t0 = time.perf_counter()
-    res = serve.main(["--synthetic", "64", "--queue", "8", "--batch", "8",
-                      "--verify-topk", "4", "--attempts", "16", "--reps", "3",
-                      "--device", "cuda"])
-    launches = {name: fn.launches for name, fn in serve.KERNELS.items()}
-    emit({"phase": "serve", "seconds": time.perf_counter() - t0,
-          "launches": launches})
-    problems = [f"{name} kernel never launched" for name, n in
-                launches.items() if n == 0]
-    if not res["accuracy_5cm5deg"] >= 0.95:
-        problems.append(f"accuracy {res['accuracy_5cm5deg']} < 0.95")
-    if not res["poses_finite"]:
-        problems.append("non-finite served pose")
-    if problems:
-        print("chip_smoke: serve failed: " + "; ".join(problems),
-              file=sys.stderr)
-        return 1
+    inlier = test_ransac.main(["--synthetic", "64", "--fused-refine",
+                               "--rdraw", "0", "--select", "inlier",
+                               "--device", "cuda"])
+    emit({"phase": "test_ransac_select_inlier",
+          "seconds": time.perf_counter() - t0,
+          "accuracy_5cm5deg": inlier["accuracy_5cm5deg"]})
+    emit({"phase": "summary",
+          "reloc_per_s": {k: results[k]["reloc_per_s"]
+                          for k in ("serve", "serve_cnn", "serve_fixed_t")},
+          "accuracy_5cm5deg": {k: results[k]["accuracy_5cm5deg"]
+                               for k in results},
+          "test_ransac_accuracy_select_inlier": inlier["accuracy_5cm5deg"],
+          "reference_test_ransac_accuracy": REF_TEST_RANSAC_ACCURACY})
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = total[row["name"]]
+        row["launches_by_phase"] = {k: v[row["name"]]
+                                    for k, v in by_phase.items()}
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,15 +4,19 @@ single-chip path).
 Renders ``--synthetic N`` frames of the default room at the bench poses
 (data/room_default.json, the ground truth), stages a queue of
 ``--queue`` batches of ``--batch`` frames on the device, and serves them:
-DenseCoordNet (weights from ``--weights``) -> two-phase P3P sampling of
-256 hypotheses with ``--attempts`` attempts -> fused soft-inlier scores ->
-argmax -> fused IRLS refinement of the top ``--verify-topk``.  One
-warm-up pass over the queue, then ``--reps`` timed passes.
+DenseCoordNet (weights from ``--weights``) -> P3P sampling of 256
+hypotheses with ``--attempts`` attempts (two-phase, or fixed-T through
+the P3P kernel with ``--no-two-phase``) -> scores (the fused soft-inlier
+kernel, or with ``--no-fused-scoring`` the diff-map kernel and the score
+CNN of ``--score-weights``) -> argmax -> fused IRLS refinement of the top
+``--verify-topk``.  One warm-up pass over the queue, then ``--reps`` timed
+passes.
 
 Prints one JSON line: throughput, accuracy at 5 cm / 5 deg of the last
 pass's poses, median errors, and each kernel's launch count.
 
     python -m dsac_tpu_torch.cli.serve --synthetic 64 --queue 8 --batch 8
+    python -m dsac_tpu_torch.cli.serve --no-fused-scoring
 """
 
 from __future__ import annotations
@@ -31,16 +35,19 @@ from dsac_tpu_torch.data.synthetic import SyntheticScene
 from dsac_tpu_torch.geometry.loss import is_correct, pose_errors
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.models.coord_net import DenseCoordNet, gather_dense_coords
-from dsac_tpu_torch.ops.diffmap_cuda import soft_inlier_scores
-from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused
+from dsac_tpu_torch.models.score_net import ScoreNet
+from dsac_tpu_torch.ops.diffmap_cuda import diffmaps, soft_inlier_scores
+from dsac_tpu_torch.ops.gn_cuda import irls_stats, refine_pose_fused
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
 from dsac_tpu_torch.pipeline.forward import (FrameResult,
                                              process_frames_batched)
-from dsac_tpu_torch.utils.params_io import load_coord_net_npz
+from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
+                                            load_score_net_npz)
 
 REPO = Path(__file__).resolve().parents[2]
 KERNELS = {"p3p": p3p_solve, "soft_inlier_score": soft_inlier_scores,
-           "refine_irls": refine_pose_fused}  # name -> wrapper
+           "refine_irls": refine_pose_fused, "diffmap": diffmaps,
+           "irls_stats": irls_stats}  # name -> wrapper
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -55,6 +62,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--weights", default=str(REPO / "artifacts" /
                                              "coord_e2e.npz"))
+    ap.add_argument("--score-weights", default=str(REPO / "artifacts" /
+                                                   "score_e2e.npz"),
+                    help="score CNN weights (with --no-fused-scoring)")
+    ap.add_argument("--fused-scoring", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="score with the fused soft-inlier kernel; off: "
+                         "the diff-map kernel and the score CNN")
+    ap.add_argument("--two-phase", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="two-phase sampling; off: fixed-T sampling "
+                         "through the P3P kernel")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -66,6 +84,7 @@ class Staged(NamedTuple):
     images: torch.Tensor  # (Q, B, H, W, 3) RGB in [0, 255]
     gt: Pose  # (Q * B,) ground-truth scene -> eye poses
     net: DenseCoordNet
+    score_net: ScoreNet | None  # with --no-fused-scoring
     serve_batch: Callable[[torch.Tensor], FrameResult]
 
 
@@ -83,6 +102,8 @@ def stage(args: argparse.Namespace) -> Staged:
         num_hypotheses=256, random_draw=False,
         sample_attempts=args.attempts))
     net = load_coord_net_npz(args.weights, device)
+    score_net = (None if args.fused_scoring
+                 else load_score_net_npz(args.score_weights, device))
 
     B, Q = args.batch, args.queue
     frame = torch.arange(B * Q, device=device) % args.synthetic
@@ -99,11 +120,14 @@ def stage(args: argparse.Namespace) -> Staged:
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     def serve_batch(imgs: torch.Tensor) -> FrameResult:
-        return process_frames_batched(imgs, coord_fn, cam, cfg,
-                                      verify_topk=args.verify_topk,
-                                      generator=gen)
+        return process_frames_batched(
+            imgs, coord_fn, cam, cfg, verify_topk=args.verify_topk,
+            generator=gen,
+            scoring="fused_soft" if args.fused_scoring else "cnn",
+            score_fn=score_net,
+            sampling="two_phase" if args.two_phase else True)
 
-    return Staged(device, images, gt, net, serve_batch)
+    return Staged(device, images, gt, net, score_net, serve_batch)
 
 
 def main(argv=None) -> dict:
@@ -144,6 +168,8 @@ def main(argv=None) -> dict:
         "median_trans_mm": float(trans.median()),
         "poses_finite": bool(torch.isfinite(out.R).all()
                              and torch.isfinite(out.t).all()),
+        "scoring": "fused_soft" if args.fused_scoring else "cnn",
+        "sampling": "two_phase" if args.two_phase else "fixed_t_fused",
         "batch": B, "queue": Q, "verify_topk": args.verify_topk,
         "attempts": args.attempts, "reps": args.reps,
         "frames": args.synthetic,

@@ -10,11 +10,11 @@
 // R <- exp(omega) R and t <- t + dt.  n_in is the inlier mass at the pose
 // that entered the last step, as in the reference.
 //
-// Work per pixel per step: 194 f32 operations (chip_smoke.py's
-// REFINE_OPS_PER_PIXEL_STEP): 58 for the residual, the weight and the two
-// Jacobian rows, 21 x 5 for the JtJ sums, 6 x 5 for the Jtr sums and 1 for
-// the inlier mass.  Per pose per step, ~400 more (REFINE_OPS_PER_SOLVE)
-// for the Jacobi scaling, the 6x6 Cholesky solve and Rodrigues.
+// Work per pixel per step: 165 f32 operations (chip_smoke.py's
+// IRLS_OPS_PER_PIXEL), counted in irls_stats.cuh, whose per-pixel
+// body and block reduction this kernel shares with irls_stats.cu.  Per
+// pose per step, ~400 more (REFINE_OPS_PER_SOLVE) for the Jacobi scaling,
+// the 6x6 Cholesky solve and Rodrigues.
 //
 // Bound on the H100: f32 arithmetic; the 20 bytes per pixel come from
 // device memory once and from L1 on the other steps.  With 4 poses per
@@ -27,16 +27,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "irls_stats.cuh"
+
 namespace {
+
+using dsac_irls::kStats;
+using dsac_irls::tri;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStats = 28;
-
-__device__ __forceinline__ int tri(int i, int j) {
-  // index of (i, j), i <= j, in the row-major upper triangle of a 6x6
-  return i * 6 - i * (i - 1) / 2 + (j - i);
-}
 
 __global__ void refine_kernel(const float* __restrict__ R0,
                               const float* __restrict__ t0,
@@ -74,47 +73,10 @@ __global__ void refine_kernel(const float* __restrict__ R0,
 #pragma unroll
     for (int k = 0; k < kStats; ++k) acc[k] = 0.0f;
 
-    for (int n = tid; n < N; n += kThreads) {
-      float x = cb[3 * n], y = cb[3 * n + 1], z = cb[3 * n + 2];
-      float ax = R[0] * x + R[1] * y + R[2] * z;
-      float ay = R[3] * x + R[4] * y + R[5] * z;
-      float az = R[6] * x + R[7] * y + R[8] * z;
-      float ex = ax + t[0], ey = ay + t[1], ez = az + t[2];
-      if (fabsf(ez) < 1.0f) ez = ez > 0.0f ? 1.0f : -1.0f;  // 1 mm floor
-      float inv_z = 1.0f / ez;
-      float fz = f * inv_z;
-      float ru = pb[2 * n] - (-fz * ex + cx);
-      float rv = pb[2 * n + 1] - (fz * ey + cy);
-      float err = sqrtf(ru * ru + rv * rv + 1e-8f);
-      float w = 1.0f / (1.0f + expf(-(tau - fminf(err, max_err)) * inv_beta));
-      float gx = fz * ex * inv_z;
-      float gy = fz * ey * inv_z;
-      float ju[6] = {gx * ay, -fz * az - gx * ax, fz * ay, -fz, 0.0f, gx};
-      float jv[6] = {-fz * az - gy * ay, gy * ax, fz * ax, 0.0f, fz, -gy};
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-#pragma unroll
-        for (int j = i; j < 6; ++j)
-          acc[tri(i, j)] += w * (ju[i] * ju[j] + jv[i] * jv[j]);
-        acc[21 + i] += w * (ju[i] * ru + jv[i] * rv);
-      }
-      acc[27] += w;
-    }
-
-    // block reduction: warp shuffles, then one pass through shared memory
-#pragma unroll
-    for (int k = 0; k < kStats; ++k) {
-      float v = acc[k];
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (tid % 32 == 0) partial[tid / 32][k] = v;
-    }
-    __syncthreads();
-    if (tid < kStats) {
-      float s = 0.0f;
-      for (int w = 0; w < kWarps; ++w) s += partial[w][tid];
-      stats[tid] = s;
-    }
+    dsac_irls::accumulate<kThreads>(R, t, cb, pb, N, tid, f, cx, cy,
+                                    max_err, tau, inv_beta, acc);
+    float s = dsac_irls::block_sum<kWarps>(acc, partial, tid);
+    if (tid < kStats) stats[tid] = s;
     __syncthreads();
 
     n_in = stats[27];

@@ -9,6 +9,8 @@ from dsac_tpu_torch.geometry.pose import Pose, invert, transform
 from dsac_tpu_torch.geometry.projection import (
     project, reprojection_errors, transform_to_eye,
 )
-from dsac_tpu_torch.geometry.loss import is_correct, pose_errors
+from dsac_tpu_torch.geometry.loss import (
+    MAX_LOSS, expected_max_loss, is_correct, max_loss, pose_errors,
+)
 from dsac_tpu_torch.geometry.p3p import solve_pnp_minimal
 from dsac_tpu_torch.geometry.gn import gn_pnp, refine_pose

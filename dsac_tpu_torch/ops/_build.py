@@ -2,7 +2,8 @@
 
 One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
 into ``dsac_tpu_torch/_build/libdsac_kernels_<hash>.so``; the hash covers
-the sources, so an edit rebuilds.  The library has a plain C interface
+the sources and the headers they include (``csrc/*.cuh``), so an edit
+rebuilds.  The library has a plain C interface
 (each launcher takes device pointers, sizes, scalars and the stream, and
 returns ``cudaGetLastError()``) and is loaded with ``ctypes``: no PyTorch
 headers are compiled, which keeps the build to seconds.
@@ -39,6 +40,9 @@ SIGNATURES = {
                                 _F, _F, _P, _P],
     "dsac_refine_pose": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                          _F, _F, _F, _P, _P, _P, _P],
+    "dsac_diffmaps": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    "dsac_irls_stats": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                        _P, _P],
 }
 
 
@@ -46,9 +50,13 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdsac_kernels_{h.hexdigest()[:16]}.so"
@@ -125,3 +133,20 @@ def check(name: str, x: torch.Tensor, shape: tuple,
                          f"{shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_poses(R: torch.Tensor, t: torch.Tensor, coords: torch.Tensor,
+                pix: torch.Tensor) -> tuple[int, int, int, torch.device]:
+    """(B, P, N, device) of poses R (B, P, 3, 3), t (B, P, 3) against
+    coords (B, N, 3) at pixels pix (B, N, 2), the inputs of the score,
+    diff-map, refine and IRLS-stats kernels; raises on anything else."""
+    B, P = t.shape[:2]
+    N = coords.shape[1]
+    dev = t.device
+    check("R", R, (B, P, 3, 3), dev)
+    check("t", t, (B, P, 3), dev)
+    check("coords", coords, (B, N, 3), dev)
+    check("pix", pix, (B, N, 2), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cuda or cpu, not {dev}")
+    return B, P, N, dev

@@ -1,5 +1,6 @@
-"""Stratified pixel sampling and two-phase minimal-set hypothesis sampling
-(port of dsac_tpu/ops/sampling.py, its fused two-phase path).
+"""Stratified pixel sampling and minimal-set hypothesis sampling (port of
+dsac_tpu/ops/sampling.py): the two-phase sampler and both fixed-T
+samplers, fused (the P3P kernel) and unfused (the PyTorch P3P solver).
 
 Every function keeps a leading frame axis B, so one P3P launch serves all
 lanes of a batch of frames.  Random draws come from an explicit
@@ -15,8 +16,9 @@ from typing import NamedTuple
 import torch
 
 from dsac_tpu_torch.config import Camera, PoseConfig
-from dsac_tpu_torch.geometry.p3p import gn_polish_pose
+from dsac_tpu_torch.geometry.p3p import gn_polish_pose, solve_pnp_minimal
 from dsac_tpu_torch.geometry.pose import Pose
+from dsac_tpu_torch.geometry.projection import project
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
 
 
@@ -92,10 +94,10 @@ def _take(x: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
 
 def _select(idx_b: torch.Tensor, poses: Pose, valid: torch.Tensor,
             worst: torch.Tensor, coords: torch.Tensor, pix: torch.Tensor,
-            cam: Camera) -> MinimalSets:
+            cam: Camera, polish: bool = True) -> MinimalSets:
     """The first valid attempt per lane (B, L, T), or the attempt with the
-    smallest worst error, flagged invalid; the chosen set gets the
-    sub-pixel GN polish."""
+    smallest worst error, flagged invalid; with ``polish`` the chosen set
+    gets the sub-pixel GN polish."""
     first_valid = torch.argmax(valid.to(torch.int32), dim=-1)
     fallback = torch.argmin(torch.where(valid, torch.inf, worst), dim=-1)
     any_valid = valid.any(dim=-1)
@@ -103,6 +105,8 @@ def _select(idx_b: torch.Tensor, poses: Pose, valid: torch.Tensor,
 
     sel_idx = _take(idx_b, chosen)
     sel = Pose(_take(poses.R, chosen), _take(poses.t, chosen))
+    if not polish:
+        return MinimalSets(indices=sel_idx, poses=sel, valid=any_valid)
     polished = gn_polish_pose(sel, gather_rows(coords, sel_idx),
                               gather_rows(pix, sel_idx), cam)
     ok = (torch.isfinite(polished.R).all(dim=(-2, -1))
@@ -125,6 +129,51 @@ def _solve_attempts_fused(idx: torch.Tensor, coords: torch.Tensor,
     worst = worst.reshape(B, L, T)
     valid = solved.reshape(B, L, T) & (worst < thresh) & ~_has_dup(idx)
     return poses, valid, worst
+
+
+def _solve_attempts_plain(idx: torch.Tensor, coords: torch.Tensor,
+                          pix: torch.Tensor, cam: Camera, thresh: float):
+    """Solve the (B, L, T) attempts idx (B, L, T, 4) with the PyTorch P3P
+    solver, each polished before the consistency check; returns (poses,
+    valid, worst), each with batch (B, L, T)."""
+    obj = gather_rows(coords, idx)  # (B, L, T, 4, 3)
+    img = gather_rows(pix, idx)
+    poses, solved = solve_pnp_minimal(obj, img, cam)
+    err = torch.linalg.norm(project(poses, obj, cam) - img, dim=-1)
+    worst = err.amax(dim=-1)
+    valid = solved & (worst < thresh) & ~_has_dup(idx)
+    return poses, valid, worst
+
+
+def sample_minimal_sets(coords: torch.Tensor, pix: torch.Tensor,
+                        cam: Camera, cfg: PoseConfig, fused: bool,
+                        idx: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None
+                        ) -> MinimalSets:
+    """Fixed-T hypothesis sampling for a batch of frames: every one of the
+    H lanes solves T attempts (draws idx (B, H, T, 4)) and keeps its first
+    valid one (dsac_tpu/ops/sampling.py:sample_minimal_sets).
+
+    coords (B, N, 3) mm; pix (B, N, 2) float.  ``fused=True``
+    (sampling.py:218-221) solves all B * H * T attempts in one launch of
+    the P3P kernel, checks the raw P3P poses and polishes only the chosen
+    set.  ``fused=False`` (sampling.py:223-256) is the port of the
+    reference's jnp path, which the reference computes without Pallas: the
+    PyTorch P3P solver (geometry/p3p.py:solve_pnp_minimal) polishes every
+    attempt before the 4-point consistency check.  It is not the P3P
+    kernel's plain version standing in for the kernel.  The reference's
+    ``hyp_sample_chunk`` bounds XLA scratch memory and changes no result;
+    it has no counterpart here.
+    """
+    B, n = coords.shape[:2]
+    H, T = cfg.num_hypotheses, cfg.sample_attempts
+    if idx is None:
+        idx = torch.randint(0, n, (B, H, T, 4), generator=generator,
+                            device=coords.device)
+    solve = _solve_attempts_fused if fused else _solve_attempts_plain
+    return _select(idx, *solve(idx, coords, pix, cam,
+                               cfg.inlier_threshold_2d),
+                   coords, pix, cam, polish=fused)
 
 
 def sample_minimal_sets_two_phase(coords: torch.Tensor, pix: torch.Tensor,

@@ -2,7 +2,9 @@
 of dsac_tpu/utils/params_io.py) and the carry-over into PyTorch modules.
 
 Keys are ``|``-joined Flax parameter paths, e.g. ``params|Conv_3|kernel``;
-kernels are HWIO, stored f16.  Nothing converted is written to disk.
+convolution kernels are HWIO and become OIHW, dense kernels are
+(in, out) and become ``nn.Linear``'s (out, in); all are stored f16 and
+carried over as f32.  Nothing converted is written to disk.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from dsac_tpu_torch.models.coord_net import DenseCoordNet
+from dsac_tpu_torch.models.score_net import ScoreNet
 
 
 def load_params_npz(path: str | Path) -> dict[str, np.ndarray]:
@@ -21,20 +24,41 @@ def load_params_npz(path: str | Path) -> dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
+def _copy_layer(flat: dict[str, np.ndarray], name: str, layer: torch.nn.Module,
+                perm: tuple[int, ...]) -> None:
+    """Copy params|name|kernel (transposed by perm) and |bias into layer."""
+    kernel = flat[f"params|{name}|kernel"].astype(np.float32)
+    w = torch.from_numpy(kernel.transpose(perm).copy())
+    if w.shape != layer.weight.shape:
+        raise ValueError(f"{name}: kernel {tuple(w.shape)} does not fit "
+                         f"{tuple(layer.weight.shape)}")
+    layer.weight.copy_(w)
+    layer.bias.copy_(torch.from_numpy(
+        flat[f"params|{name}|bias"].astype(np.float32)))
+
+
 def coord_net_from_flax(flat: dict[str, np.ndarray]) -> DenseCoordNet:
     """A DenseCoordNet holding the Flax parameters, as f32 OIHW."""
     width = flat["params|Conv_0|kernel"].shape[-1]
     net = DenseCoordNet(width=width)
     with torch.no_grad():
         for i, conv in enumerate(net.convs):
-            kernel = flat[f"params|Conv_{i}|kernel"].astype(np.float32)
-            bias = flat[f"params|Conv_{i}|bias"].astype(np.float32)
-            w = torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy())
-            if w.shape != conv.weight.shape:
-                raise ValueError(f"Conv_{i}: kernel {tuple(w.shape)} does "
-                                 f"not fit {tuple(conv.weight.shape)}")
-            conv.weight.copy_(w)
-            conv.bias.copy_(torch.from_numpy(bias))
+            _copy_layer(flat, f"Conv_{i}", conv, (3, 2, 0, 1))
+    return net
+
+
+def score_net_from_flax(flat: dict[str, np.ndarray],
+                        dtype: torch.dtype = torch.bfloat16) -> ScoreNet:
+    """A ScoreNet holding the Flax parameters, as f32 OIHW convolutions
+    and (out, in) dense weights; width_mult is read from Conv_9's width
+    (512 x width_mult)."""
+    width_mult = flat["params|Conv_9|kernel"].shape[-1] / 512
+    net = ScoreNet(width_mult=width_mult, dtype=dtype)
+    with torch.no_grad():
+        for i, conv in enumerate(net.convs):
+            _copy_layer(flat, f"Conv_{i}", conv, (3, 2, 0, 1))
+        for i, fc in enumerate(net.dense):
+            _copy_layer(flat, f"Dense_{i}", fc, (1, 0))
     return net
 
 
@@ -43,4 +67,12 @@ def load_coord_net_npz(path: str | Path,
     """Read a coordinate-net artifact (e.g. artifacts/coord_e2e.npz)."""
     from dsac_tpu_torch import resolve_device
     return coord_net_from_flax(load_params_npz(path)).to(
+        resolve_device(device)).eval()
+
+
+def load_score_net_npz(path: str | Path,
+                       device: torch.device | str = "cuda") -> ScoreNet:
+    """Read a score-net artifact (e.g. artifacts/score_e2e.npz)."""
+    from dsac_tpu_torch import resolve_device
+    return score_net_from_flax(load_params_npz(path)).to(
         resolve_device(device)).eval()

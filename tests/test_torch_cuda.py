@@ -7,7 +7,12 @@ there without the conftest:
 
 Bars as in tests/test_torch_kernels.py: P3P decision agreement >= 0.98 and
 median |dR| < 1e-3; score max abs error <= 1e-3; refine |dt| <= 2 mm,
-|dR| <= 1e-4, |dn_in| <= 0.5.
+|dR| <= 1e-4, |dn_in| <= 0.5.  As in tests/test_torch_diffmap_stats.py:
+diff-maps rtol 1e-4, atol 1e-2 (tests/test_pallas_kernels.py:42-53); IRLS
+statistics n_in rtol 1e-3 / atol 0.05, JtJ and Jtr rtol 2e-3 / atol 2.0
+(tests/test_gn_pallas.py:46-55); the stepwise refiner against the refine
+kernel at the refine kernel's bars, and in test_ransac at the served
+hypothesis at tests/test_gn_pallas.py:112-115's (1e-2 mm, 1e-5).
 """
 
 import numpy as np
@@ -17,9 +22,13 @@ import torch
 from dsac_tpu_torch.config import Camera
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.geometry.rotation import so3_exp
-from dsac_tpu_torch.ops.diffmap_cuda import (soft_inlier_scores,
+from dsac_tpu_torch.ops.diffmap_cuda import (diffmaps, diffmaps_ref,
+                                             soft_inlier_scores,
                                              soft_inlier_scores_ref)
-from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused, refine_pose_ref
+from dsac_tpu_torch.ops.gn_cuda import (irls_stats, irls_stats_ref,
+                                        refine_pose_fused,
+                                        refine_pose_fused_steps,
+                                        refine_pose_ref, unpack_stats)
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve, p3p_solve_ref
 from dsac_tpu_torch.ops.sampling import gather_rows
 from torch_problems import frames
@@ -83,6 +92,45 @@ def test_refine_matches_plain_version(problem):
     assert float((na - nb).abs().max()) <= 0.5
 
 
+def _pool(rng, gt, scale_w, scale_t, P=64):
+    """P poses per frame around the known ones."""
+    def noise(scale):
+        return torch.from_numpy(rng.normal(size=(2, P, 3)) * scale).float(
+        ).to(gt.t.device)
+
+    return Pose((so3_exp(noise(scale_w)) @ gt.R[:, None]).contiguous(),
+                (gt.t[:, None] + noise(scale_t)).contiguous())
+
+
+def test_diffmap_and_irls_stats_match_plain_versions(problem):
+    rng, gt, coords, pix = problem
+    pool = _pool(rng, gt, 0.2, 300.0, P=37)  # a ragged hypothesis tile
+    before = (diffmaps.launches, irls_stats.launches)
+    got = diffmaps(pool.R, pool.t, coords, pix, CAM)
+    assert diffmaps.launches == before[0] + 1
+    torch.testing.assert_close(got, diffmaps_ref(pool.R, pool.t, coords,
+                                                 pix, CAM),
+                               rtol=1e-4, atol=1e-2)
+    ks = unpack_stats(irls_stats(pool.R, pool.t, coords, pix, CAM))
+    assert irls_stats.launches == before[1] + 1
+    rs = unpack_stats(irls_stats_ref(pool.R, pool.t, coords, pix, CAM))
+    torch.testing.assert_close(ks[2], rs[2], rtol=1e-3, atol=0.05)
+    torch.testing.assert_close(ks[1], rs[1], rtol=2e-3, atol=2.0)
+    torch.testing.assert_close(ks[0], rs[0], rtol=2e-3, atol=2.0)
+
+
+def test_stepwise_refiner_matches_refine_kernel(problem):
+    rng, gt, coords, pix = problem
+    pool = _pool(rng, gt, 0.01, 30.0)
+    a, na = refine_pose_fused(pool, coords, pix, CAM)
+    before = irls_stats.launches
+    b, nb = refine_pose_fused_steps(pool, coords, pix, CAM, steps=16)
+    assert irls_stats.launches == before + 16
+    assert float((a.t - b.t).abs().max()) <= 2.0
+    assert float((a.R - b.R).abs().max()) <= 1e-4
+    assert float((na - nb).abs().max()) <= 0.5
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(problem):
     _, gt, coords, pix = problem
     R = gt.R[:, None].expand(2, 4, 3, 3).contiguous()
@@ -93,6 +141,14 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(problem):
         soft_inlier_scores(R, t, coords.cpu(), pix, CAM)
     with pytest.raises(ValueError):
         refine_pose_fused(Pose(R.transpose(-1, -2), t), coords, pix, CAM)
+    with pytest.raises(TypeError):
+        diffmaps(R, t, coords, pix.double(), CAM)
+    with pytest.raises(ValueError):
+        diffmaps(R, t[:, :3], coords, pix, CAM)
+    with pytest.raises(ValueError):
+        irls_stats(R.transpose(-1, -2), t, coords, pix, CAM)
+    with pytest.raises(ValueError):
+        irls_stats(R, t, coords, pix.cpu(), CAM)
 
 
 def test_serve_localises_a_small_queue(cuda):
@@ -100,3 +156,19 @@ def test_serve_localises_a_small_queue(cuda):
     res = serve.main(["--synthetic", "8", "--batch", "4", "--queue", "2",
                       "--reps", "1"])
     assert res["accuracy_5cm5deg"] >= 0.95 and res["poses_finite"]
+
+
+def test_test_ransac_evaluates_two_frames(cuda):
+    from dsac_tpu_torch.cli import test_ransac
+    from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
+    before = (refine_pose_fused.launches, diffmaps.launches,
+              p3p_solve.launches, irls_stats.launches)
+    res = test_ransac.main(["--synthetic", "2", "--fused-refine", "--rdraw",
+                            "0", "--check-refine"])
+    assert (refine_pose_fused.launches, diffmaps.launches,
+            p3p_solve.launches, irls_stats.launches) == (
+        before[0] + 2, before[1] + 2, before[2], before[3] + 2 * 16)
+    assert res["accuracy_5cm5deg"] >= 0.5 and res["all_finite"]
+    # tests/test_gn_pallas.py:112-115, at the served hypothesis
+    assert res["refine_check"]["served_max_abs_dt_mm"] <= 1e-2
+    assert res["refine_check"]["served_max_abs_dR"] <= 1e-5

@@ -168,7 +168,7 @@ def test_winner_only_branch_and_single_frame(served):
     single = process_frame(
         torch.from_numpy(maps[1]), coord_fn, Camera.make(FOCAL, W, HGT),
         cfg, verify_topk=TOPK,
-        draws=FrameDraws(*(d[1:] for d in draws)))
+        draws=FrameDraws(*(None if d is None else d[1:] for d in draws)))
     torch.testing.assert_close(single.final.t, got.final.t[1])
     assert single.scores.shape == (NH,)
 

@@ -1,11 +1,13 @@
-"""Shared inputs of the port's kernel tests (numpy-seeded, no JAX), used
-by tests/test_torch_kernels.py and tests/test_torch_cuda.py."""
+"""Shared inputs of the port's tests (numpy-seeded, no JAX), used by
+tests/test_torch_kernels.py, tests/test_torch_cuda.py and the score-net
+and score-CNN pipeline tests."""
 
 import numpy as np
 import torch
 
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.geometry.rotation import so3_exp
+from dsac_tpu_torch.models.score_net import ScoreNet
 
 
 def T(x):
@@ -29,3 +31,20 @@ def frames(rng, B=2, N=1600, noise=4.0, outliers=0.3):
     out = rng.random((B, N)) < outliers
     scene[out] = rng.uniform(-3000, 3000, size=(out.sum(), 3))
     return gt, T(scene), T(pix)
+
+
+def random_score_flat(rng, width_mult):
+    """Flax-layout parameters of a ScoreNet at width_mult (He-scaled), as
+    the npz artifacts hold them: HWIO conv kernels, (in, out) dense."""
+    flat, cin = {}, 1
+    for i, (cout, _s, _p) in enumerate(ScoreNet(width_mult).spec):
+        flat[f"params|Conv_{i}|kernel"] = rng.normal(
+            size=(3, 3, cin, cout)) * np.sqrt(2.0 / (9 * cin))
+        flat[f"params|Conv_{i}|bias"] = rng.normal(size=cout) * 0.1
+        cin = cout
+    fc = max(16, int(1024 * width_mult))
+    for i, (a, b) in enumerate([(cin, fc), (fc, fc), (fc, 1)]):
+        flat[f"params|Dense_{i}|kernel"] = rng.normal(size=(a, b)) * \
+            np.sqrt(2.0 / a)
+        flat[f"params|Dense_{i}|bias"] = rng.normal(size=b) * 0.1
+    return {k: v.astype(np.float32) for k, v in flat.items()}
