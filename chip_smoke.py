@@ -30,12 +30,35 @@ stopped):
                   kernel on all 256 hypotheses of each frame, and the
                   stepwise refiner beside it, which must agree with it at
                   the served hypothesis to 1e-2 mm and 1e-5), then once
-                  more with --select inlier.
+                  more with --select inlier;
+8. train_grad     one rendered frame at full width (DenseCoordNet 64,
+                  ScoreNet 1.0, H = 256, T = 16) with the trained weights
+                  and the same draws: the DSAC objective's gradients in
+                  refine mode "implicit" (the refine kernel) against
+                  "unroll" (autograd through the PyTorch IRLS), and
+                  SoftAM's "implicit" (with the kernel's init-pose
+                  backward) against "implicit_jnp", at the bars of
+                  tests/test_implicit_grad.py:224-260 and
+                  tests/test_train.py:257-282; and the init-pose
+                  backward against its plain version at SoftAM's
+                  averaged pose of fixture frames 0-7, 16 steps
+                  (softam_average_backward);
+9. train_ransac   dsac_tpu_torch.cli.train_ransac, 8 rounds of end-to-end
+                  DSAC training in refine mode "implicit" from the trained
+                  weights, written as the port's obj_model_init and
+                  score_model_init snapshots into a fresh runs/ directory;
+10. train_ransac_softam  the same with the SoftAM objective.
 
-Before each of phases 4-7 the kernels' launch counters are set to 0, and
-they are read just after it; each phase fails if a kernel of its path was
-never launched.  Then nvidia-smi's line, one JSON line of per-kernel
-numbers (launches summed over phases 4-7), and the last line
+The kernels phase also holds the refine kernel's init-pose backward
+(ops/gn_cuda.py:InitSensitiveRefine, one launch on B x 12 probe poses)
+against its plain version and against autograd through the truncated
+PyTorch unroll, at the training shape (B = 1) and at B = 8.
+
+Before each of phases 4-10 the kernels' launch counters are set to 0, and
+they are read just after it, with the phase's peak device memory; each
+phase fails if a kernel of its path was never launched.  Then
+nvidia-smi's line, one JSON line of per-kernel numbers (launches summed
+over phases 4-10), and the last line
 {"ok": true, "device": {...}}.  Any failed bar or error exits non-zero
 before that last line.  Without a CUDA device, or without the repository
 around this file, it fails.
@@ -45,9 +68,11 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Peaks of one H100 SXM (NVIDIA data sheet): device memory rate and f32
 # rate outside the tensor cores.  All five kernels do f32 arithmetic.
@@ -92,7 +117,25 @@ STEPS_VS_FUSED_DT_MM, STEPS_VS_FUSED_DR = 1e-2, 1e-5
 PATHS = {"serve": ("p3p", "soft_inlier_score", "refine_irls"),
          "serve_cnn": ("p3p", "diffmap", "refine_irls"),
          "serve_fixed_t": ("p3p", "diffmap", "refine_irls"),
-         "test_ransac": ("diffmap", "refine_irls", "irls_stats")}
+         "test_ransac": ("diffmap", "refine_irls", "irls_stats"),
+         "train_grad": ("refine_irls", "refine_init_backward"),
+         "train_ransac": ("refine_irls",),
+         "train_ransac_softam": ("refine_irls", "refine_init_backward")}
+
+# The init-pose backward: inits 0.03 rad and 60 mm off, refined for 1
+# step, against its plain version, its plain version in f64 and autograd
+# through the truncated PyTorch unroll; the timing at the training shape,
+# 16 steps.  In the reference's regime (0.15 rad, 300 mm, 4 steps;
+# tests/test_implicit_grad.py:89-142) these frames start below
+# min_inliers and freeze, and both gradients are the identity's; after 2
+# steps from 0.06 rad most have converged, and the f32 central differences
+# of the rest are a few percent off their f64 twin.  Here the plain f32
+# estimate meets its f64 twin at cosine 1.00000 and ratio 0.998-1.004 on
+# the same construction on the CPU.
+FD_STEPS = 1
+FD_INIT_RAD, FD_INIT_MM = 0.03, 60.0
+TRAIN_ROUNDS = 8
+REPO = Path(__file__).resolve().parent
 
 
 def emit(obj: dict) -> None:
@@ -218,8 +261,9 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
                                                  soft_inlier_scores_ref)
     from dsac_tpu_torch.ops.gn_cuda import (irls_stats, irls_stats_ref,
                                             refine_pose_fused,
+                                            refine_pose_fused_ref,
                                             refine_pose_fused_steps,
-                                            refine_pose_ref, unpack_stats)
+                                            unpack_stats)
     from dsac_tpu_torch.ops.p3p_cuda import p3p_solve, p3p_solve_ref
     from dsac_tpu_torch.ops.sampling import gather_rows
 
@@ -311,7 +355,7 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
         return refine_pose_fused(poses, coords, pix, cam)
 
     kr, kn = refine()
-    rr, rn = refine_pose_ref(poses, coords, pix, cam)
+    rr, rn = refine_pose_fused_ref(poses, coords, pix, cam)
     dt = float((kr.t - rr.t).abs().max())
     dRr = float((kr.R - rr.R).abs().max())
     dn = float((kn - rn).abs().max())
@@ -331,7 +375,7 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
                  "shapes": f"B={B} P={TOPK} N={N} steps={steps}",
                  "ms": events_ms(refine, 10, SAMPLES),
                  "device_ms": profiled_ms(refine, 20, "refine_kernel"),
-                 "plain_ms": events_ms(lambda: refine_pose_ref(
+                 "plain_ms": events_ms(lambda: refine_pose_fused_ref(
                      poses, coords, pix, cam), 1, SAMPLES),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
@@ -466,19 +510,140 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
                  "refine_kernel"),
              "steps_ms": events_ms(lambda: refine_pose_fused_steps(
                  pool, coords, pix, cam, steps=STEPS), 1, SAMPLES)}
+    rows.append(check_init_backward(dev, gen, cam, gt, coords, pix,
+                                    failures))
     return rows, failures, check
 
 
-def run_phase(fn, kernels: dict) -> tuple[dict, dict, float]:
+def cosine_ratio(a, b) -> tuple[float, float]:
+    a, b = a.double().flatten(), b.double().flatten()
+    return (float(a @ b / (a.norm() * b.norm() + 1e-30)),
+            float(a.norm() / (b.norm() + 1e-30)))
+
+
+def check_init_backward(dev, gen, cam, gt, coords, pix,
+                        failures: list) -> dict:
+    """The init-pose backward of the refine kernel against its plain
+    version and against autograd through the truncated unroll, per frame,
+    at B = 1 and B = 8 (one pose a frame: 12 probes each); its times at
+    the training shape (B = 1, 16 steps)."""
+    import torch
+    from dsac_tpu_torch.geometry.gn import refine_pose
+    from dsac_tpu_torch.geometry.pose import Pose, pose_to_vec6
+    from dsac_tpu_torch.geometry.rotation import so3_exp
+    from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine,
+                                            refine_init_sensitive,
+                                            refine_pose_fused)
+    from dsac_tpu_torch.utils.timing import events_ms, profiled_ms
+
+    R0 = (so3_exp(torch.randn(B, 1, 3, generator=gen, device=dev)
+                  * FD_INIT_RAD) @ gt.R[:, None]).contiguous()
+    t0 = (gt.t[:, None] + torch.randn(B, 1, 3, generator=gen, device=dev)
+          * FD_INIT_MM).contiguous()
+    w = torch.randn(B, 1, 6, generator=gen, device=dev)
+
+    def grad(nb, route, dtype=torch.float32):
+        v6 = torch.zeros(nb, 1, 6, device=dev, dtype=dtype,
+                         requires_grad=True)
+        p = Pose(so3_exp(v6[..., :3]) @ R0[:nb].to(dtype),
+                 t0[:nb].to(dtype) + v6[..., 3:])
+        c, x = coords[:nb].to(dtype), pix[:nb].to(dtype)
+        if route == "unroll":
+            out = refine_pose(p, c[:, None], x[:, None], cam, steps=FD_STEPS,
+                              inner_iters=1)[0]
+        elif route == "identity":  # the gradient of a frozen pose
+            out = p
+        else:
+            out = refine_init_sensitive(p, c, x, cam, outer_steps=FD_STEPS,
+                                        inner_iters=1,
+                                        plain=route == "plain")
+        (w[:nb].to(dtype) * pose_to_vec6(out)).sum().backward()
+        return v6.grad[:, 0]
+
+    worst = {}
+    for nb in (1, B):
+        before = InitSensitiveRefine.launches
+        gk = grad(nb, "kernel")
+        if InitSensitiveRefine.launches != before + 1:
+            failures.append("init backward: not one launch per backward")
+        gp, gu, gi = grad(nb, "plain"), grad(nb, "unroll"), grad(nb,
+                                                                "identity")
+        g64 = grad(nb, "plain", torch.float64)
+        vs = {name: [cosine_ratio(gk[b], ref[b]) for b in range(nb)]
+              for name, ref in (("plain", gp), ("plain_f64", g64),
+                                ("unroll", gu))}
+        live = sum(cosine_ratio(gu[b], gi[b])[0] < 0.9 for b in range(nb))
+        worst[nb] = {f"{k}_{name}": v for name, pairs in vs.items()
+                     for k, v in (("min_cos_vs", min(c for c, _ in pairs)),
+                                  ("ratios_vs", [r for _, r in pairs]))}
+        worst[nb]["frames_neither_frozen_nor_converged"] = live
+        worst[nb]["max_abs_err"] = float((gk - gp).abs().max())
+        ok = (all(c >= 0.999 and 0.99 <= r <= 1.01
+                  for name in ("plain", "plain_f64") for c, r in vs[name])
+              and all(c > 0.97 and 0.8 < r < 1.25 for c, r in vs["unroll"])
+              and bool(torch.isfinite(gk).all())
+              and (nb == 1 or 4 * live >= nb))
+        if not ok:
+            failures.append(f"init backward at B={nb}: {worst[nb]}")
+    with torch.no_grad():
+        a = refine_init_sensitive(Pose(R0, t0), coords, pix, cam)
+        b, _ = refine_pose_fused(Pose(R0, t0), coords, pix, cam)
+    fwd_dR = float((a.R - b.R).abs().max())
+    fwd_dt = float((a.t - b.t).abs().max())
+    if not (fwd_dR <= 1e-6 and fwd_dt <= 1e-4):
+        failures.append(f"init backward forward: |dR| {fwd_dR}, |dt| "
+                        f"{fwd_dt} against the refine kernel")
+
+    # times of the backward alone, at the training shape: B = 1, 16 steps
+    def backward_call(plain: bool):
+        R = R0[:1].clone().requires_grad_()
+        t = t0[:1].clone().requires_grad_()
+        out = refine_init_sensitive(Pose(R, t), coords[:1], pix[:1], cam,
+                                    plain=plain)
+        g = (torch.ones_like(out.R), torch.ones_like(out.t))
+        return lambda: torch.autograd.grad((out.R, out.t), (R, t), g,
+                                           retain_graph=True)
+
+    call = backward_call(False)
+    probes = 12
+    b_ms, b_by = bound_ms(
+        probes * 12 * 4 + N * 5 * 4 + probes * 13 * 4,
+        probes * STEPS * (N * IRLS_OPS_PER_PIXEL + REFINE_OPS_PER_SOLVE))
+    return {"name": "refine_init_backward", "route": "cuda",
+            "source": "dsac_tpu_torch/ops/gn_cuda.py",
+            "kernel_source": "dsac_tpu_torch/csrc/refine.cu",
+            "replaces": "dsac_tpu/ops/gn_pallas.py:469",
+            "max_abs_err": max(v["max_abs_err"] for v in worst.values()),
+            "checks": {f"B={nb}": v for nb, v in worst.items()},
+            "forward_max_abs_dR": fwd_dR, "forward_max_abs_dt_mm": fwd_dt,
+            "bar": "per frame cosine >= 0.999 and norm ratio 0.99-1.01 "
+                   "against plain and plain in f64; cosine > 0.97 and "
+                   "ratio 0.8-1.25 against autograd through the truncated "
+                   f"unroll ({FD_STEPS} step, inits {FD_INIT_RAD} rad and "
+                   f"{FD_INIT_MM} mm off); at B=8 a quarter of the frames "
+                   "or more neither frozen nor converged; forward against "
+                   "the refine kernel to 1e-6 on R, 1e-4 on t",
+            "shapes": f"B=1 P=1: 12 probes, N={N} steps={STEPS}",
+            "ms": events_ms(call, 10, SAMPLES),
+            "device_ms": profiled_ms(call, 20, "refine_kernel"),
+            "plain_ms": events_ms(backward_call(True), 1, SAMPLES),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def run_phase(fn, kernels: dict) -> tuple[dict, dict, float, int]:
     """Drive one path with every launch counter set to 0 just before it;
-    returns (its result, the counters just after, seconds)."""
+    returns (its result, the counters just after, seconds, peak device
+    memory in bytes since the phase began or since the phase last reset
+    the peak)."""
+    import torch
     for wrapper in kernels.values():
         wrapper.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = fn()
     seconds = time.perf_counter() - t0
     launches = {k: w.launches for k, w in kernels.items()}
-    return res, launches, seconds
+    return res, launches, seconds, torch.cuda.max_memory_allocated()
 
 
 def serve_problems(res: dict, launches: dict, path: tuple,
@@ -522,6 +687,224 @@ def test_ransac_problems(res: dict, launches: dict, path: tuple,
     if not res["all_finite"]:
         problems.append("non-finite per-frame result")
     return problems
+
+
+def train_grad(dev) -> tuple[dict, list[str]]:
+    """Gradients of one full-width round, per refine mode, on fixture
+    frame 0 with the trained weights and the same draws."""
+    import torch
+    from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
+    from dsac_tpu_torch.data.synthetic import SyntheticScene
+    from dsac_tpu_torch.geometry.pose import Pose
+    from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine,
+                                            refine_pose_fused)
+    from dsac_tpu_torch.pipeline.train import (dense_coord_apply,
+                                               e2e_expected_loss)
+    from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
+                                                load_score_net_npz)
+
+    data = DataConfig()
+    cfg = DSACConfig(data=data, pose=PoseConfig(num_hypotheses=H,
+                                                sample_attempts=T))
+    scene = SyntheticScene(data.image_width, data.image_height,
+                           data.focal_length, device=dev)
+    gt = Pose(scene.bench_poses.R[:1], scene.bench_poses.t[:1])
+    image = scene.render(gt)[0]
+    coord_net = load_coord_net_npz(REPO / "artifacts" / "coord_e2e.npz", dev)
+    score_net = load_score_net_npz(REPO / "artifacts" / "score_e2e.npz", dev)
+
+    def run(softam: bool, mode: str):
+        coord_net.zero_grad()
+        score_net.zero_grad()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        obj, aux = e2e_expected_loss(
+            lambda im, pix: dense_coord_apply(coord_net, im, pix), score_net,
+            image, gt, data.camera(), cfg, softam=softam, refine_mode=mode,
+            generator=torch.Generator(device=dev).manual_seed(7))
+        obj.backward()
+        torch.cuda.synchronize()
+
+        def flat(net):
+            return torch.cat([q.grad.flatten() for q in net.parameters()])
+        return {"objective": float(obj.detach()),
+                "seconds": time.perf_counter() - t0,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                "entropy": float(aux["entropy"][0]),
+                "valid_hyps": int(aux["valid_hyps"][0])}, flat(coord_net), \
+            flat(score_net)
+
+    out, problems = {}, []
+    for softam, modes in ((False, ("implicit", "unroll")),
+                          (True, ("implicit", "implicit_jnp"))):
+        tag = "softam" if softam else "dsac"
+        (ri, gci, gsi), (rj, gcj, gsj) = (run(softam, m) for m in modes)
+        c_cos, c_ratio = cosine_ratio(gci, gcj)
+        s_cos, s_ratio = cosine_ratio(gsi, gsj)
+        out[tag] = {modes[0]: ri, modes[1]: rj, "coord_cos": c_cos,
+                    "coord_ratio": c_ratio, "score_cos": s_cos,
+                    "score_ratio": s_ratio,
+                    "score_grad_norm": float(gsi.norm())}
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in (gci, gsi, gcj, gsj))
+        if not finite or not c_cos > 0.9:
+            problems.append(f"{tag}: coordinate gradient cosine {c_cos} "
+                            f"(bar > 0.9), finite {finite}")
+        if softam:
+            if not float(gsi.norm()) > 0.0:
+                problems.append("softam: zero score gradient")
+            # launches made to compare the backward with its plain
+            # version are not the path's: the counters are put back
+            counts = {fn: fn.launches for fn in (refine_pose_fused,
+                                                 InitSensitiveRefine)}
+            out[tag]["average_backward"] = softam_average_backward(
+                dev, coord_net, score_net, scene, cfg, problems)
+            for fn, n in counts.items():
+                fn.launches = n
+        else:
+            if not abs(ri["objective"] - rj["objective"]) < 0.05 * (
+                    abs(rj["objective"]) + 1e-3):
+                problems.append(f"dsac: objective {ri['objective']} vs "
+                                f"{rj['objective']} (bar 5%)")
+            if not s_cos > 0.95:
+                problems.append(f"dsac: score gradient cosine {s_cos} "
+                                "(bar > 0.95)")
+    return out, problems
+
+
+def softam_average_backward(dev, coord_net, score_net, scene, cfg,
+                            problems: list) -> dict:
+    """The refine kernel's init-pose backward at the main path's input:
+    the softmax-averaged pose of SoftAM's forward (process_frame_softam,
+    the draws of train_grad) on fixture frames 0-7 (frame 0 is
+    train_grad's), refined for the default 8 x 2 = 16 steps, with the
+    cotangent of the frame's maxLoss.  Per frame, the kernel's gradient in
+    the averaged pose's tangent space against its plain version, in f32
+    and in f64.  Where the plain f32 gradient misses its f64 twin (cosine
+    < 0.999 or norm ratio outside 0.99-1.01) the average has converged
+    within the 16 steps and the central differences are f32 rounding; the
+    frame is counted as converged, with its reading (``sensitivity``: the
+    f64 gradient's norm over that of the identity map, ~0 when converged,
+    1 when frozen below min_inliers), and only held finite.  Every other frame is held at
+    cosine >= 0.999 and norm ratio 0.99-1.01 against both."""
+    import torch
+    from dsac_tpu_torch.geometry.loss import max_loss
+    from dsac_tpu_torch.geometry.pose import (Pose, pose_from_vec6,
+                                              pose_to_vec6)
+    from dsac_tpu_torch.geometry.rotation import so3_exp
+    from dsac_tpu_torch.ops.gn_cuda import refine_init_sensitive
+    from dsac_tpu_torch.pipeline.forward import process_frame_softam
+    from dsac_tpu_torch.pipeline.train import dense_coord_apply
+
+    cam = cfg.data.camera()
+    frames = []
+    for i in range(8):
+        gt = Pose(scene.bench_poses.R[i:i + 1], scene.bench_poses.t[i:i + 1])
+        with torch.no_grad():
+            res = process_frame_softam(
+                scene.render(gt)[0],
+                lambda im, pix: dense_coord_apply(coord_net, im, pix),
+                score_net, cam, cfg, refine_mode="implicit",
+                generator=torch.Generator(device=dev).manual_seed(7))
+            avg = pose_from_vec6(torch.sum(res.probs[..., None]
+                                           * pose_to_vec6(res.hyps), dim=1))
+        pix = res.sampling.reshape(1, -1, 2).to(torch.float32).contiguous()
+
+        def grad(route, dtype=torch.float32):
+            v6 = torch.zeros(1, 1, 6, device=dev, dtype=dtype,
+                             requires_grad=True)
+            p = Pose(so3_exp(v6[..., :3]) @ avg.R[:, None].to(dtype),
+                     avg.t[:, None].to(dtype) + v6[..., 3:])
+            out = p if route == "identity" else refine_init_sensitive(
+                p, res.coords.to(dtype), pix.to(dtype), cam,
+                plain=route == "plain")
+            max_loss(Pose(out.R[:, 0], out.t[:, 0]),
+                     Pose(gt.R.to(dtype), gt.t.to(dtype))).sum().backward()
+            return v6.grad[0, 0]
+
+        gk, gp = grad("kernel"), grad("plain")
+        g64, gi = grad("plain", torch.float64), grad("identity",
+                                                     torch.float64)
+        rounding = cosine_ratio(gp, g64)
+        converged = not (rounding[0] >= 0.999
+                         and 0.99 <= rounding[1] <= 1.01)
+        n_in = float(res.inlier_counts[0, 0])
+        f = {"frame": i, "soft_inliers": n_in,
+             "frozen": n_in < cfg.pose.min_inliers,
+             "sensitivity": float(g64.norm() / gi.norm()),
+             "plain_vs_plain_f64": rounding,
+             "kernel_vs_plain": cosine_ratio(gk, gp),
+             "kernel_vs_plain_f64": cosine_ratio(gk, g64),
+             "converged": converged}
+        frames.append(f)
+        held = converged or all(c >= 0.999 and 0.99 <= r <= 1.01
+                                for c, r in (f["kernel_vs_plain"],
+                                             f["kernel_vs_plain_f64"]))
+        if not (held and bool(torch.isfinite(gk).all())):
+            problems.append(f"softam average backward, frame {i}: {f}")
+    return {"frames": frames,
+            "converged_frames": sum(f["converged"] for f in frames),
+            "frozen_frames": sum(f["frozen"] for f in frames),
+            "bar": "per frame not converged: cosine >= 0.999 and norm "
+                   "ratio 0.99-1.01 against plain and plain in f64; every "
+                   "frame finite"}
+
+
+def train_phase(softam: bool) -> tuple[dict, list[str]]:
+    """TRAIN_ROUNDS rounds of train_ransac from the trained weights,
+    written as the port's init snapshots into a fresh runs/ directory."""
+    from dsac_tpu_torch.cli import train_ransac
+    from dsac_tpu_torch.models import DenseCoordNet, ScoreNet
+    from dsac_tpu_torch.utils import checkpoint as ckpt
+    from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
+                                                load_score_net_npz)
+
+    tag = "softam" if softam else "e2e"
+    out = REPO / "runs" / f"chip_smoke_train_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    for name, net in ((ckpt.OBJ_INIT, load_coord_net_npz(
+            REPO / "artifacts" / "coord_e2e.npz", "cpu")),
+                      (ckpt.SCORE_INIT, load_score_net_npz(
+                          REPO / "artifacts" / "score_e2e.npz", "cpu"))):
+        ckpt.save(out, name, {"params": net.state_dict()})
+    res = train_ransac.main(
+        ["--rounds", str(TRAIN_ROUNDS), "--snapshot-every", "4", "--out",
+         str(out), "--device", "cuda", "--refine-mode", "auto"]
+        + (["--softam"] if softam else []))
+    problems = []
+    per_round = [r["launches"] for r in res["rounds"]]
+    want_fwd, want_bwd = (2, 1) if softam else (1, 0)
+    for r in res["rounds"]:
+        if not (math.isfinite(r["objective"]) and r["grad_finite"]):
+            problems.append(f"round {r['round']}: objective "
+                            f"{r['objective']}, grad_finite "
+                            f"{r['grad_finite']}")
+        if (r["launches"]["refine_irls"] != want_fwd
+                or r["launches"]["refine_init_backward"] != want_bwd):
+            problems.append(f"round {r['round']}: launches {r['launches']}, "
+                            f"want refine {want_fwd}, backward {want_bwd}")
+    if res["refine_mode"] != "implicit" or len(res["rounds"]) != TRAIN_ROUNDS:
+        problems.append(f"mode {res['refine_mode']}, "
+                        f"{len(res['rounds'])} rounds")
+    obj_name = ckpt.OBJ_SOFTAM if softam else ckpt.OBJ_E2E
+    score_name = ckpt.SCORE_SOFTAM if softam else ckpt.SCORE_E2E
+    snap_c = ckpt.restore(out, obj_name)
+    snap_s = ckpt.restore(out, score_name)
+    DenseCoordNet(width=64).load_state_dict(snap_c["params"])
+    ScoreNet().load_state_dict(snap_s["params"])
+    if not (res["snapshots"] == [4, TRAIN_ROUNDS]
+            and snap_c["step"] == snap_s["step"] == TRAIN_ROUNDS):
+        problems.append(f"snapshots {res['snapshots']}, restored steps "
+                        f"{snap_c['step']}, {snap_s['step']}")
+    summary = {k: res[k] for k in ("objective", "refine_mode",
+                                   "ms_per_round_median", "first_round_ms",
+                                   "peak_memory_bytes", "snapshots")}
+    summary["launches_per_round"] = per_round
+    summary["objectives"] = [r["objective"] for r in res["rounds"]]
+    summary["grad_norms"] = [r["grad_norm"] for r in res["rounds"]]
+    summary["valid_hyps"] = [r["valid_hyps"] for r in res["rounds"]]
+    return summary, problems
 
 
 def main() -> int:
@@ -577,9 +960,10 @@ def main() -> int:
     total = {k: 0 for k in serve.KERNELS}
     by_phase, results = {}, {}
     for name, (entry, argv, batches) in phases.items():
-        res, launches, seconds = run_phase(lambda: entry(argv),
-                                           serve.KERNELS)
-        emit({"phase": name, "seconds": seconds, "launches": launches})
+        res, launches, seconds, peak = run_phase(lambda: entry(argv),
+                                                 serve.KERNELS)
+        emit({"phase": name, "seconds": seconds, "launches": launches,
+              "peak_memory_bytes": peak})
         results[name], by_phase[name] = res, launches
         for k, n in launches.items():
             total[k] += n
@@ -598,6 +982,23 @@ def main() -> int:
     emit({"phase": "test_ransac_select_inlier",
           "seconds": time.perf_counter() - t0,
           "accuracy_5cm5deg": inlier["accuracy_5cm5deg"]})
+    for name, fn in (("train_grad", lambda: train_grad(dev)),
+                     ("train_ransac", lambda: train_phase(False)),
+                     ("train_ransac_softam", lambda: train_phase(True))):
+        (res, problems), launches, seconds, peak = run_phase(
+            fn, serve.KERNELS)
+        problems += [f"{k} kernel never launched" for k in PATHS[name]
+                     if launches[k] == 0]
+        emit({"phase": name, "seconds": seconds, "launches": launches,
+              "phase_peak_memory_bytes": peak, **res})
+        by_phase[name] = launches
+        for k, n in launches.items():
+            total[k] += n
+        if problems:
+            print(f"chip_smoke: {name} failed: " + "; ".join(problems),
+                  file=sys.stderr)
+            return 1
+
     emit({"phase": "summary",
           "reloc_per_s": {k: results[k]["reloc_per_s"]
                           for k in ("serve", "serve_cnn", "serve_fixed_t")},

@@ -1,7 +1,7 @@
 """dsac_tpu_torch — the PyTorch/CUDA port of ``dsac_tpu``.
 
 A second package beside the JAX reference.  Plain tensor code is PyTorch;
-every Pallas kernel of the serve path is a CUDA kernel written for Hopper
+every Pallas kernel of the reference is a CUDA kernel written for Hopper
 (``csrc/*.cu``), built with ``nvcc`` into one shared library at first use
 and bound with ``ctypes`` (``ops/_build.py``).  Each kernel wrapper keeps
 its plain PyTorch version beside it: a CPU tensor goes there, a CUDA tensor
@@ -13,12 +13,23 @@ reference it keeps as its own copy.
 Layer map (mirrors ``dsac_tpu``):
 
   config        Camera, PoseConfig, DataConfig, NetConfig, DSACConfig
-  geometry/     pose math, P3P, Gauss-Newton refinement, pose errors
-  ops/          sampling, scoring, selection, and the three CUDA kernels
-  models/       DenseCoordNet (bf16 convolutions)
-  data/         the default synthetic room, rendered on the device
-  pipeline/     batched relocalisation (process_frames_batched)
-  cli/          serve
+  geometry/     pose math and vec6, P3P (differentiable, with the
+                reference's gradient cuts), Gauss-Newton refinement and
+                the implicit step, pose errors
+  ops/          sampling, scoring, selection, and the five CUDA kernels:
+                P3P, soft-inlier score, diff-map, fused IRLS refine (with
+                its init-pose backward, a torch.autograd.Function) and
+                IRLS statistics
+  models/       DenseCoordNet and ScoreNet (bf16 convolutions, f32
+                master weights)
+  data/         the default synthetic room, rendered on the device, and
+                its random training views
+  pipeline/     batched DSAC and SoftAM forward passes and their refine
+                modes, evaluation, end-to-end training
+  utils/        npz weights (read and write), snapshots, training logs,
+                timing on the card
+  cli/          serve, profile_serve, test_ransac, train_ransac,
+                train_ransac_softam
 """
 
 __version__ = "0.1.0"

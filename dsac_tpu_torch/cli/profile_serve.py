@@ -1,23 +1,30 @@
-"""Where the serve time goes on the card, for one batch of 8 frames at
+"""Where the time goes on the card: for one serve batch of 8 frames at
 the bench configuration (256 hypotheses, 16 attempts, verify_topk 4),
 with fused soft-inlier scoring or, with ``--no-fused-scoring``, the
-diff-map kernel and the score CNN.
+diff-map kernel and the score CNN; or, with ``--train dsac|softam``, for
+one end-to-end training round of ``train_ransac`` at the reference's
+configuration (DenseCoordNet 64 on 640x480, ScoreNet 1.0, 256 hypotheses
+of 16 attempts, refine mode ``implicit``) from the trained weights of
+``artifacts/``, on fixture frame 0.
 
-Measures, after two warm-up batches:
+Measures, after two warm-up batches (rounds):
 
-* the batch time (CUDA events over ``--steps`` batches),
-* the coordinate CNN alone on the same batch (CUDA events), with its
-  achieved rate from its FLOP count; with ``--no-fused-scoring`` the
-  score CNN alone on the batch's (8 x 256, 40, 40) maps, likewise,
-* a ``torch.profiler`` window over ``--steps`` batches: device time by
-  kernel, the CUDA kernels' share, device kernels launched per batch,
-  and the device's idle share: of the batch time, and of the profiled
-  window's host wall time (which the profiler lengthens).
+* the batch (round) time, CUDA events over ``--steps`` of them;
+* serving: the coordinate CNN alone on the same batch (CUDA events), with
+  its achieved rate from its FLOP count; with ``--no-fused-scoring`` the
+  score CNN alone on the batch's (8 x 256, 40, 40) maps, likewise;
+  training: the forward alone (the objective without its backward);
+* a ``torch.profiler`` window over ``--steps`` of them: device time by
+  kernel, the CUDA kernels' device time, device kernels launched per
+  batch (round), and the device's idle share: of the batch (round) time,
+  and of the profiled window's host wall time (which the profiler
+  lengthens).
 
 Prints one JSON line (and writes it to ``--out`` when given).
 
     python -m dsac_tpu_torch.cli.profile_serve --steps 8
     python -m dsac_tpu_torch.cli.profile_serve --steps 8 --no-fused-scoring
+    python -m dsac_tpu_torch.cli.profile_serve --steps 4 --train softam
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from dsac_tpu_torch.cli import serve
 from dsac_tpu_torch.utils.timing import (device_us, events_ms,
                                         is_device_event, profile)
 
+REPO = Path(__file__).resolve().parents[2]
 BATCH = 8  # frames per batch at the bench config
 KERNEL_NAMES = {"p3p": "p3p_kernel", "soft_inlier_score": "score_kernel",
                 "refine_irls": "refine_kernel", "diffmap": "diffmap_kernel",
@@ -48,14 +56,100 @@ def coord_net_flops(height: int, width: int, spec) -> int:
     return flops
 
 
+def breakdown(fn, steps: int, unit: str, unit_ms: float) -> dict:
+    """A torch.profiler window over ``steps`` calls of ``fn``, one
+    ``unit`` (batch or round) each of ``unit_ms``: the CUDA kernels'
+    device time, device busy time, kernels launched, idle shares and the
+    top device kernels, per unit."""
+    prof, wall_us = profile(fn, steps)
+    rows = [e for e in prof.key_averages()
+            if is_device_event(e) and device_us(e) > 0]
+    rows.sort(key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in rows)
+    return {
+        "kernel_ms": {k: sum(device_us(e) for e in rows if v in e.key)
+                      / steps / 1e3 for k, v in KERNEL_NAMES.items()},
+        f"device_busy_ms_per_{unit}": busy_us / steps / 1e3,
+        f"host_wall_ms_per_{unit}": wall_us / steps / 1e3,
+        "device_idle_share": 1.0 - busy_us / steps / 1e3 / unit_ms,
+        "device_idle_share_profiled": 1.0 - busy_us / wall_us,
+        f"device_kernels_per_{unit}": sum(e.count for e in rows) / steps,
+        f"top_device_ms_per_{unit}": [
+            [e.key[:80], device_us(e) / steps / 1e3, e.count // steps]
+            for e in rows[:15]],
+    }
+
+
+def train_round(objective: str, steps: int) -> dict:
+    """The breakdown of one training round (``--train``)."""
+    from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
+    from dsac_tpu_torch.data.synthetic import SyntheticScene
+    from dsac_tpu_torch.geometry.pose import Pose
+    from dsac_tpu_torch.pipeline.train import (dense_coord_apply,
+                                               e2e_expected_loss, e2e_step,
+                                               make_e2e_state)
+    from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
+                                                load_score_net_npz)
+
+    dev = torch.device("cuda")
+    data = DataConfig()
+    cfg = DSACConfig(data=data, pose=PoseConfig())
+    cam = data.camera()
+    scene = SyntheticScene(data.image_width, data.image_height,
+                           data.focal_length, device=dev)
+    gt = Pose(scene.bench_poses.R[:1], scene.bench_poses.t[:1])
+    image = scene.render(gt)[0]
+    state = make_e2e_state(
+        load_coord_net_npz(REPO / "artifacts" / "coord_e2e.npz", dev),
+        load_score_net_npz(REPO / "artifacts" / "score_e2e.npz", dev))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    softam = objective == "softam"
+
+    def round_():
+        e2e_step(state, image, gt, cam, cfg, softam=softam,
+                 refine_mode="implicit", generator=gen)
+
+    def forward():
+        with torch.no_grad():
+            e2e_expected_loss(
+                lambda im, pix: dense_coord_apply(state.coord_net, im, pix),
+                state.score_net, image, gt, cam, cfg, softam=softam,
+                refine_mode="implicit", generator=gen)
+
+    for _ in range(2):
+        round_()
+    torch.cuda.synchronize()
+    round_ms = events_ms(round_, steps)
+    return {"metric": "train_round_breakdown", "objective": objective,
+            "round_ms": round_ms, "forward_ms": events_ms(forward, steps),
+            **breakdown(round_, steps, "round", round_ms)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=8,
-                    help="batches timed, and batches profiled")
+                    help="batches (rounds) timed, and profiled")
     ap.add_argument("--out", default=None, help="also write the line here")
     ap.add_argument("--fused-scoring", action=argparse.BooleanOptionalAction,
                     default=True)
+    ap.add_argument("--train", choices=("dsac", "softam"), default=None,
+                    help="profile a training round of this objective")
     args = ap.parse_args(argv)
+    if args.train:
+        result = {"device": torch.cuda.get_device_name(0),
+                  "steps": args.steps, **train_round(args.train, args.steps)}
+    else:
+        result = serve_batch(args)
+    line = json.dumps(result)
+    print(line, flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    return result
+
+
+def serve_batch(args) -> dict:
+    """The breakdown of one serve batch."""
     st = serve.stage(serve.parse_args([
         "--synthetic", str(BATCH), "--batch", str(BATCH), "--queue", "1",
         "--device", "cuda"] + ([] if args.fused_scoring
@@ -80,16 +174,11 @@ def main(argv=None) -> dict:
                      "score_cnn_gflop_per_batch": score_flops / 1e9,
                      "score_cnn_maps": maps.shape[0]}
 
-        prof, wall_us = profile(lambda: st.serve_batch(imgs), args.steps)
+        prof = breakdown(lambda: st.serve_batch(imgs), args.steps, "batch",
+                         batch_ms)
 
-    rows = [e for e in prof.key_averages()
-            if is_device_event(e) and device_us(e) > 0]
-    rows.sort(key=device_us, reverse=True)
-    busy_us = sum(device_us(e) for e in rows)
-    ours = {k: sum(device_us(e) for e in rows if v in e.key) / args.steps
-            / 1e3 for k, v in KERNEL_NAMES.items()}
     flops = coord_net_flops(H, W, st.net.spec) * B
-    result = {
+    return {
         "metric": "serve_batch_breakdown",
         "device": torch.cuda.get_device_name(0),
         "scoring": "fused_soft" if args.fused_scoring else "cnn",
@@ -100,22 +189,8 @@ def main(argv=None) -> dict:
         "cnn_tflop_per_s": flops / cnn_ms / 1e9,
         "cnn_gflop_per_frame": flops / B / 1e9,
         **score,
-        "kernel_ms": ours,
-        "device_busy_ms_per_batch": busy_us / args.steps / 1e3,
-        "host_wall_ms_per_batch": wall_us / args.steps / 1e3,
-        "device_idle_share": 1.0 - busy_us / args.steps / 1e3 / batch_ms,
-        "device_idle_share_profiled": 1.0 - busy_us / wall_us,
-        "device_kernels_per_batch": sum(e.count for e in rows) / args.steps,
-        "top_device_ms_per_batch": [
-            [e.key[:80], device_us(e) / args.steps / 1e3, e.count
-             // args.steps] for e in rows[:15]],
+        **prof,
     }
-    line = json.dumps(result)
-    print(line, flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
-    return result
 
 
 if __name__ == "__main__":

@@ -37,7 +37,8 @@ from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.models.coord_net import DenseCoordNet, gather_dense_coords
 from dsac_tpu_torch.models.score_net import ScoreNet
 from dsac_tpu_torch.ops.diffmap_cuda import diffmaps, soft_inlier_scores
-from dsac_tpu_torch.ops.gn_cuda import irls_stats, refine_pose_fused
+from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine, irls_stats,
+                                        refine_pose_fused)
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
 from dsac_tpu_torch.pipeline.forward import (FrameResult,
                                              process_frames_batched)
@@ -45,9 +46,12 @@ from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
                                             load_score_net_npz)
 
 REPO = Path(__file__).resolve().parents[2]
+# name -> wrapper, each with its count of launches; the last is the refine
+# kernel's launches from the init-pose backward (training)
 KERNELS = {"p3p": p3p_solve, "soft_inlier_score": soft_inlier_scores,
            "refine_irls": refine_pose_fused, "diffmap": diffmaps,
-           "irls_stats": irls_stats}  # name -> wrapper
+           "irls_stats": irls_stats,
+           "refine_init_backward": InitSensitiveRefine}
 
 
 def parse_args(argv=None) -> argparse.Namespace:

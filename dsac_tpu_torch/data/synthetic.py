@@ -6,13 +6,15 @@ The reference draws its texture parameters and the bench poses from
 fixture ``room_default.json`` written from the reference: the texture's
 12 wave frequencies, directions and phases (seed 1305), and the 64 bench
 poses of keys 9000..9063 (bench.py:135), scene -> eye, which are also the
-ground truth.  Per-frame noise, occluders and the archetypes are not
-ported.
+ground truth.  Training views come from ``random_pose`` on an explicit
+``torch.Generator``: the reference's distribution, not its draws.
+Per-frame noise, occluders and the archetypes are not ported.
 """
 
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
 
 import torch
@@ -20,6 +22,7 @@ import torch
 from dsac_tpu_torch import resolve_device
 from dsac_tpu_torch.config import Camera
 from dsac_tpu_torch.geometry.pose import Pose, invert
+from dsac_tpu_torch.geometry.rotation import so3_exp
 
 FIXTURE = Path(__file__).resolve().parent / "room_default.json"
 ROOM_MM = (4000.0, 3000.0, 4000.0)  # the box [0, w] x [0, h] x [0, d]
@@ -47,6 +50,34 @@ class SyntheticScene:
     @property
     def camera(self) -> Camera:
         return Camera.make(self.focal, self.width, self.height)
+
+    def random_pose(self, generator: torch.Generator,
+                    batch: int = 1) -> Pose:
+        """Random scene -> eye poses (batch,) of a camera standing inside
+        the room and looking inward (synthetic.py:146-168): its centre
+        uniform in the middle half of the floor plan at 0.3-0.7 of the
+        height, yaw uniform in [0, 2 pi), pitch in [-0.35, 0.35] and roll
+        in [-0.2, 0.2] rad, the camera-to-scene rotation yaw (about y)
+        after pitch (x) after roll (z).  ``generator`` lies on the scene's
+        device."""
+        w, h, d = ROOM_MM
+        f32 = dict(dtype=torch.float32, device=self.device)
+
+        def uniform(lo, hi, shape):
+            lo = torch.as_tensor(lo, **f32)
+            hi = torch.as_tensor(hi, **f32)
+            return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                               **f32)
+
+        pos = uniform([w * 0.25, h * 0.3, d * 0.25],
+                      [w * 0.75, h * 0.7, d * 0.75], (batch, 3))
+        yaw = uniform(0.0, 2 * math.pi, (batch,))
+        pitch = uniform(-0.35, 0.35, (batch,))
+        roll = uniform(-0.2, 0.2, (batch,))
+        eye = torch.eye(3, **f32)
+        Rc = (so3_exp(eye[1] * yaw[:, None]) @ so3_exp(eye[0] * pitch[:, None])
+              @ so3_exp(eye[2] * roll[:, None]))
+        return invert(Pose(Rc, pos))
 
     def texture(self, points_mm: torch.Tensor) -> torch.Tensor:
         """Scene points (..., 3) -> RGB in [0, 255] (..., 3)."""

@@ -1,9 +1,12 @@
 """Gauss-Newton PnP and soft-inlier IRLS refinement (port of
 dsac_tpu/geometry/gn.py).
 
-``refine_pose`` is the plain version of the fused refine kernel
-(ops/gn_cuda.py): the same fixed point, reached by ``steps`` reweightings
-of ``inner_iters`` Gauss-Newton steps each.
+``refine_pose`` runs ``steps`` reweightings of ``inner_iters``
+Gauss-Newton steps each.  With ``inner_iters=1`` and ``steps`` the
+kernel's step count it is the plain version of the fused refine kernel
+(ops/gn_cuda.py), step for step; the reference's 8 x 2 nest reaches the
+same fixed point by another path.  ``implicit_refine_step`` is the
+differentiable step that training takes from a fixed point.
 """
 
 from __future__ import annotations
@@ -137,3 +140,23 @@ def refine_pose(pose: Pose, obj: torch.Tensor, pix: torch.Tensor,
         p = Pose(torch.where(keep[..., None, None], new_p.R, p.R),
                  torch.where(keep[..., None], new_p.t, p.t))
     return p, n_in
+
+
+def implicit_refine_step(pose_star: Pose, obj: torch.Tensor,
+                         pix: torch.Tensor, cam: Camera,
+                         threshold: float = 10.0, beta: float = 1.0,
+                         damping: float = 1e-4,
+                         max_error: float = 100.0) -> Pose:
+    """One differentiable IRLS step from a fixed point (gn.py:250-271).
+
+    The pose is detached: the fixed point is found without gradient (by
+    the refine kernel in training), and the derivative of this one step
+    with respect to the coordinates is the implicit-function derivative
+    of the fixed point.  At a fixed point the step leaves the value
+    unchanged."""
+    pose_star = Pose(pose_star.R.detach(), pose_star.t.detach())
+    r, _ = _residuals_and_jac(pose_star, obj, pix, cam)
+    err = torch.clamp(torch.sqrt(torch.sum(r * r, dim=-1) + _EPS),
+                      max=max_error)
+    w = soft_inlier_weights(err, threshold, beta)
+    return gn_pnp(pose_star, obj, pix, w, cam, iters=1, damping=damping)

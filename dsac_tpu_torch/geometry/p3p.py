@@ -1,9 +1,13 @@
 """Batched minimal PnP: Grunert P3P with a branchless closed-form quartic
 (port of dsac_tpu/geometry/p3p.py).
 
-Forward only: the port serves, it does not train yet, so the reference's
-stop-gradient and implicit-step plumbing reduces to the values it
-computes.  Every lane stays finite, degenerate ones included.
+Differentiable as the reference is: training differentiates this solver
+with respect to the scene coordinates, and the gradient is cut where the
+reference cuts it (``.detach()`` for ``jax.lax.stop_gradient``): at the
+quartic's roots, through the Newton iterations, at the final Newton
+step's v and p'(v), and at the coefficients' norm.  Only the final
+Newton step carries a gradient, the implicit derivative of the root.
+Every lane stays finite, degenerate ones included, in value and gradient.
 """
 
 from __future__ import annotations
@@ -103,15 +107,19 @@ def _solve_quartic_real(coeffs: torch.Tensor):
 
     y = torch.where(biq[..., None], y_biq, y_quads)
     is_real = torch.where(biq[..., None], real_biq, real_quads)
-    return y - b[..., None] / 4.0, is_real
+    # no gradient through the closed form (p3p.py:150)
+    return (y - b[..., None] / 4.0).detach(), is_real
 
 
 def _newton_polish_real(coeffs: torch.Tensor, v0: torch.Tensor,
                         steps: int = 3, grad_floor: float = 1e-2
                         ) -> torch.Tensor:
-    """``steps`` clipped Newton steps on a quartic root, then the
-    reference's final step with the derivative floored at ``grad_floor``
-    (the step that carries its implicit gradient; here only its value)."""
+    """``steps`` clipped Newton steps on a quartic root without gradient,
+    then the reference's final step v - p(v) / p'(v) with v and p'(v)
+    held constant and p'(v) floored at ``grad_floor``: its derivative with
+    respect to the coefficients is the implicit derivative of the root,
+    bounded at double roots (p3p.py:154-186).  Differentiating the
+    iteration chain instead overflows f32 on degenerate sets."""
     def poly(cf, v):
         return ((((cf[..., 0] * v + cf[..., 1]) * v + cf[..., 2]) * v
                  + cf[..., 3]) * v + cf[..., 4])
@@ -120,15 +128,17 @@ def _newton_polish_real(coeffs: torch.Tensor, v0: torch.Tensor,
         return (((4.0 * cf[..., 0] * v + 3.0 * cf[..., 1]) * v
                  + 2.0 * cf[..., 2]) * v + cf[..., 3])
 
+    cs = coeffs.detach()  # p3p.py:167
     v = v0
     for _ in range(steps):
-        dpv = dpoly(coeffs, v)
+        dpv = dpoly(cs, v)
         dpv = torch.where(torch.abs(dpv) < 1e-10,
                           torch.sign(dpv) * 1e-10 + 1e-12, dpv)
-        v = v - torch.clamp(poly(coeffs, v) / dpv, -10.0, 10.0)
+        v = v - torch.clamp(poly(cs, v) / dpv, -10.0, 10.0)
         v = torch.clamp(v, -100.0, 100.0)
 
-    dpv = dpoly(coeffs, v)
+    v = v.detach()  # p3p.py:185-186
+    dpv = dpoly(cs, v)
     dpv = torch.where(dpv >= 0, torch.clamp(dpv, min=grad_floor),
                       torch.clamp(dpv, max=-grad_floor))
     return v - torch.clamp(poly(coeffs, v) / dpv, -10.0, 10.0)
@@ -170,8 +180,10 @@ def p3p_grunert(obj: torch.Tensor, bear: torch.Tensor):
     A0 = (1.0 + q) ** 2 - 4.0 * ratio(a2) * cg ** 2
 
     coeffs = torch.stack([A4, A3, A2, A1, A0], dim=-1)
+    # the roots do not depend on the scale, so the norm carries no
+    # gradient (p3p.py:239-240)
     coeffs = coeffs / (torch.amax(torch.abs(coeffs), dim=-1, keepdim=True)
-                       + 1e-12)
+                       .detach() + 1e-12)
     roots, is_real = _solve_quartic_real(coeffs)
     v = _newton_polish_real(coeffs[..., None, :], roots)
 

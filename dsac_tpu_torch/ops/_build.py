@@ -108,15 +108,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call a launcher; raise on a non-zero CUDA error code."""
-    err = getattr(library(), name)(*args)
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call a launcher on ``device``, the device of its tensors, and on
+    that device's current stream (appended as the last argument); raise on
+    a non-zero CUDA error code.  The launcher runs with ``device`` current,
+    whichever device the calling thread had current."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
-
-
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(name: str, x: torch.Tensor, shape: tuple,

@@ -35,10 +35,9 @@ def diffmaps(R: torch.Tensor, t: torch.Tensor, coords: torch.Tensor,
     if dev.type == "cpu":
         return diffmaps_ref(R, t, coords, pix, cam, max_error)
     out = torch.empty((B, H, N), dtype=torch.float32, device=dev)
-    _build.launch("dsac_diffmaps", R.data_ptr(), t.data_ptr(),
+    _build.launch("dsac_diffmaps", dev, R.data_ptr(), t.data_ptr(),
                   coords.data_ptr(), pix.data_ptr(), B, H, N, cam.focal,
-                  cam.cx, cam.cy, max_error, out.data_ptr(),
-                  _build.stream_of(t))
+                  cam.cx, cam.cy, max_error, out.data_ptr())
     diffmaps.launches += 1
     return out
 
@@ -67,10 +66,10 @@ def soft_inlier_scores(R: torch.Tensor, t: torch.Tensor,
         return soft_inlier_scores_ref(R, t, coords, pix, cam, threshold,
                                       beta, max_error)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
-    _build.launch("dsac_soft_inlier_scores", R.data_ptr(), t.data_ptr(),
-                  coords.data_ptr(), pix.data_ptr(), B, H, N, cam.focal,
-                  cam.cx, cam.cy, threshold, 1.0 / beta, max_error,
-                  out.data_ptr(), _build.stream_of(t))
+    _build.launch("dsac_soft_inlier_scores", dev, R.data_ptr(),
+                  t.data_ptr(), coords.data_ptr(), pix.data_ptr(), B, H, N,
+                  cam.focal, cam.cx, cam.cy, threshold, 1.0 / beta,
+                  max_error, out.data_ptr())
     soft_inlier_scores.launches += 1
     return out
 

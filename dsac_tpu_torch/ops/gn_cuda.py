@@ -1,22 +1,31 @@
 """IRLS pose refinement on the card: the fused refine kernel
-(csrc/refine.cu), the per-step statistics kernel (csrc/irls_stats.cu), and
-their plain PyTorch versions.
+(csrc/refine.cu), its init-pose backward, the per-step statistics kernel
+(csrc/irls_stats.cu), and their plain PyTorch versions.
 
 Ports of dsac_tpu/ops/gn_pallas.py, with a leading frame axis: poses
 (B, P) refine against their own frame's coordinates.
 
 * ``refine_pose_fused`` (<- refine_pose_fused): the whole refinement in
   one launch.  The kernel runs ``outer_steps * inner_iters`` single-GN
-  IRLS steps (as dsac_tpu/pipeline/forward.py:158 sets it); the plain
-  version is geometry/gn.py:refine_pose with ``outer_steps`` reweightings
-  of ``inner_iters`` GN steps, which reaches the same fixed point.
+  IRLS steps (as dsac_tpu/pipeline/forward.py:158 sets it); its plain
+  version ``refine_pose_fused_ref`` runs the same steps in PyTorch
+  (geometry/gn.py:refine_pose with ``inner_iters=1``).  ``refine_pose_ref``
+  is the reference's jnp refiner, ``outer_steps`` reweightings of
+  ``inner_iters`` GN steps: the same fixed point by another iteration,
+  which ``fused_refine=False`` selects.
+* ``refine_init_sensitive`` (<- make_init_sensitivity_refiner,
+  gn_pallas.py:469-544): the refine kernel as a ``torch.autograd.Function``
+  whose backward is the reference's dRefineHyp, J_init^T g by central
+  differences over the initial pose's 6 tangent dimensions, with all 12
+  probes of every pose refined in one more launch of the same kernel.
 * ``irls_stats`` (<- irls_stats): one pass of the 28 IRLS statistics per
   pose; ``refine_pose_fused_steps`` (<- refine_pose_fused_steps) runs one
   such launch per step and the 6x6 solve and pose update in PyTorch.  It
   is the independent check of the refine kernel: the two kernels share
   their per-pixel body (csrc/irls_stats.cuh), not their solve.
 
-Each wrapper counts its kernel launches in its ``launches`` attribute.
+Each wrapper counts its kernel launches in its ``launches`` attribute;
+the backward counts its own in ``InitSensitiveRefine.launches``.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from dsac_tpu_torch.config import Camera
 from dsac_tpu_torch.geometry.gn import (_residuals_and_jac, refine_pose,
                                         soft_inlier_weights, solve6_cholesky)
 from dsac_tpu_torch.geometry.pose import Pose
-from dsac_tpu_torch.geometry.rotation import so3_exp
+from dsac_tpu_torch.geometry.rotation import hat, so3_exp
 from dsac_tpu_torch.ops import _build
 
 _EPS = 1e-8
@@ -43,12 +52,52 @@ def refine_pose_ref(poses: Pose, coords: torch.Tensor, pix: torch.Tensor,
                     min_inliers: float = 50.0, damping: float = 1e-4,
                     max_error: float = 100.0
                     ) -> tuple[Pose, torch.Tensor]:
-    """Plain version: geometry/gn.py:refine_pose over the (B, P) pool."""
+    """The reference's jnp refiner over the (B, P) pool:
+    geometry/gn.py:refine_pose, ``outer_steps`` reweightings of
+    ``inner_iters`` GN steps (``fused_refine=False``)."""
     return refine_pose(poses, coords[:, None], pix[:, None], cam,
                        steps=outer_steps, inner_iters=inner_iters,
                        threshold=threshold, beta=beta,
                        min_inliers=min_inliers, damping=damping,
                        max_error=max_error)
+
+
+def refine_pose_fused_ref(poses: Pose, coords: torch.Tensor,
+                          pix: torch.Tensor, cam: Camera,
+                          outer_steps: int = 8, inner_iters: int = 2,
+                          threshold: float = 10.0, beta: float = 1.0,
+                          min_inliers: float = 50.0, damping: float = 1e-4,
+                          max_error: float = 100.0
+                          ) -> tuple[Pose, torch.Tensor]:
+    """Plain version of the refine kernel: its ``outer_steps *
+    inner_iters`` single-GN IRLS steps, each reweighting first, in
+    PyTorch.  Before convergence this differs from the 8 x 2 nest of
+    ``refine_pose_ref``, and the finite-difference backward
+    differentiates the truncated iteration itself."""
+    return refine_pose(poses, coords[:, None], pix[:, None], cam,
+                       steps=outer_steps * inner_iters, inner_iters=1,
+                       threshold=threshold, beta=beta,
+                       min_inliers=min_inliers, damping=damping,
+                       max_error=max_error)
+
+
+def _launch_refine(R0: torch.Tensor, t0: torch.Tensor, coords: torch.Tensor,
+                   pix: torch.Tensor, cam: Camera, steps: int,
+                   threshold: float, beta: float, min_inliers: float,
+                   damping: float, max_error: float
+                   ) -> tuple[Pose, torch.Tensor]:
+    """One launch of the refine kernel on checked CUDA tensors (counted by
+    the caller)."""
+    B, P, N, dev = _build.check_poses(R0, t0, coords, pix)
+    R = torch.empty_like(R0)
+    t = torch.empty_like(t0)
+    n_in = torch.empty((B, P), dtype=torch.float32, device=dev)
+    _build.launch("dsac_refine_pose", dev, R0.data_ptr(), t0.data_ptr(),
+                  coords.data_ptr(), pix.data_ptr(), B, P, N, steps,
+                  cam.focal, cam.cx, cam.cy, max_error, threshold,
+                  1.0 / beta, min_inliers, damping, R.data_ptr(),
+                  t.data_ptr(), n_in.data_ptr())
+    return Pose(R, t), n_in
 
 
 def refine_pose_fused(poses: Pose, coords: torch.Tensor, pix: torch.Tensor,
@@ -61,22 +110,15 @@ def refine_pose_fused(poses: Pose, coords: torch.Tensor, pix: torch.Tensor,
     at pixels (B, N, 2).  Returns (refined poses, soft inlier counts (B, P)
     at the pose that entered the last step)."""
     R0, t0 = poses
-    B, P, N, dev = _build.check_poses(R0, t0, coords, pix)
+    dev = _build.check_poses(R0, t0, coords, pix)[3]
     if dev.type == "cpu":
-        return refine_pose_ref(poses, coords, pix, cam, outer_steps,
-                               inner_iters, threshold, beta, min_inliers,
-                               damping, max_error)
-    R = torch.empty_like(R0)
-    t = torch.empty_like(t0)
-    n_in = torch.empty((B, P), dtype=torch.float32, device=dev)
-    _build.launch("dsac_refine_pose", R0.data_ptr(), t0.data_ptr(),
-                  coords.data_ptr(), pix.data_ptr(), B, P, N,
-                  outer_steps * inner_iters, cam.focal, cam.cx, cam.cy,
-                  max_error, threshold, 1.0 / beta, min_inliers, damping,
-                  R.data_ptr(), t.data_ptr(), n_in.data_ptr(),
-                  _build.stream_of(t0))
+        return refine_pose_fused_ref(poses, coords, pix, cam, outer_steps,
+                                     inner_iters, threshold, beta,
+                                     min_inliers, damping, max_error)
+    out = _launch_refine(R0, t0, coords, pix, cam, outer_steps * inner_iters,
+                         threshold, beta, min_inliers, damping, max_error)
     refine_pose_fused.launches += 1
-    return Pose(R, t), n_in
+    return out
 
 
 refine_pose_fused.launches = 0
@@ -110,10 +152,10 @@ def irls_stats(R: torch.Tensor, t: torch.Tensor, coords: torch.Tensor,
         return irls_stats_ref(R, t, coords, pix, cam, threshold, beta,
                               max_error)
     out = torch.empty((B, P, 28), dtype=torch.float32, device=dev)
-    _build.launch("dsac_irls_stats", R.data_ptr(), t.data_ptr(),
+    _build.launch("dsac_irls_stats", dev, R.data_ptr(), t.data_ptr(),
                   coords.data_ptr(), pix.data_ptr(), B, P, N, cam.focal,
                   cam.cx, cam.cy, max_error, threshold, 1.0 / beta,
-                  out.data_ptr(), _build.stream_of(t))
+                  out.data_ptr())
     irls_stats.launches += 1
     return out
 
@@ -158,3 +200,103 @@ def refine_pose_fused_steps(poses: Pose, coords: torch.Tensor,
         p = Pose((so3_exp(delta[..., :3]) @ p.R).contiguous(),
                  (p.t + delta[..., 3:]).contiguous())
     return p, n_in
+
+
+# the init-pose probes: rotations exp(+-eps e_i) R, translations
+# t +- eps e_i (gn_pallas.py:514-526; cnn_softam.h:738-836)
+EPS_ROT, EPS_T = 1e-3, 1.0
+
+
+def _hat_basis(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """hat(e_i) for the three axes: (3, 3, 3)."""
+    return hat(torch.eye(3, dtype=dtype, device=device))
+
+
+def init_probes(R: torch.Tensor, t: torch.Tensor) -> Pose:
+    """The 12 probe poses of every pose R (B, P, 3, 3), t (B, P, 3), in
+    the reference's order: (+, -) x (3 rotation dims, 3 translation dims).
+    Returns poses (B, 12 * P), contiguous."""
+    B, P = t.shape[:2]
+    eye = torch.eye(3, dtype=t.dtype, device=t.device)
+    dR = torch.stack([so3_exp(EPS_ROT * eye), so3_exp(-EPS_ROT * eye)])
+    Rrot = torch.einsum("sdab,npbc->nsdpac", dR, R)  # (B, 2, 3, P, 3, 3)
+    Rp = torch.cat([Rrot, R[:, None, None].expand(B, 2, 3, P, 3, 3)], dim=2)
+    sign = 1.0 - 2.0 * torch.arange(2, dtype=t.dtype, device=t.device)
+    tt = t[:, None, None] + EPS_T * (sign[:, None, None, None]
+                                     * eye[None, :, None, :])  # (B,2,3,P,3)
+    tp = torch.cat([t[:, None, None].expand(B, 2, 3, P, 3), tt], dim=2)
+    return Pose(Rp.reshape(B, 12 * P, 3, 3).contiguous(),
+                tp.reshape(B, 12 * P, 3).contiguous())
+
+
+class InitSensitiveRefine(torch.autograd.Function):
+    """The refine kernel with the reference's init-pose gradient.
+
+    Forward: ``refine_pose_fused`` (one launch, counted there).  Backward:
+    the 12 probes of every pose (``init_probes``) refined in one launch of
+    the same kernel on (B, 12 * P) poses, counted in ``launches``; the
+    central differences J_R, J_t of the refined pose per tangent dimension
+    give v = <g, J>, and the gradient is gR0 = 0.5 sum_i v_i hat(e_i) R0,
+    gt0 = v[3:] (gn_pallas.py:506-541).  The coordinates and pixels get no
+    gradient: their path is the implicit step's.  With ``plain`` both
+    refinements run the kernel's iteration in PyTorch
+    (``refine_pose_fused_ref``), on either device."""
+
+    launches = 0
+
+    @staticmethod
+    def forward(ctx, R, t, coords, pix, cam, kw, plain):
+        R, t = R.contiguous(), t.contiguous()
+        refine = refine_pose_fused_ref if plain else refine_pose_fused
+        out, _ = refine(Pose(R, t), coords, pix, cam, **kw)
+        ctx.save_for_backward(R, t, coords, pix)
+        ctx.cam, ctx.kw, ctx.plain = cam, kw, plain
+        return out.R, out.t
+
+    @staticmethod
+    def backward(ctx, gR, gt):
+        R, t, coords, pix = ctx.saved_tensors
+        B, P = t.shape[:2]
+        kw = ctx.kw
+        with torch.no_grad():
+            probes = init_probes(R, t)
+            if ctx.plain or t.device.type == "cpu":
+                out, _ = refine_pose_fused_ref(probes, coords, pix, ctx.cam,
+                                               **kw)
+            else:
+                out, _ = _launch_refine(
+                    probes.R, probes.t, coords, pix, ctx.cam,
+                    kw["outer_steps"] * kw["inner_iters"], kw["threshold"],
+                    kw["beta"], kw["min_inliers"], kw["damping"],
+                    kw["max_error"])
+                InitSensitiveRefine.launches += 1
+            oR = out.R.reshape(B, 2, 6, P, 3, 3)
+            ot = out.t.reshape(B, 2, 6, P, 3)
+            # built on the device: a host tensor here would be a
+            # synchronous copy in every backward
+            eps = torch.cat([t.new_full((3,), EPS_ROT),
+                             t.new_full((3,), EPS_T)])
+            JR = (oR[:, 0] - oR[:, 1]) / (2.0 * eps[:, None, None, None])
+            Jt = (ot[:, 0] - ot[:, 1]) / (2.0 * eps[:, None, None])
+            v = (torch.einsum("bdpjk,bpjk->bpd", JR, gR)
+                 + torch.einsum("bdpj,bpj->bpd", Jt, gt))  # (B, P, 6)
+            gR0 = 0.5 * torch.einsum("bpi,ijk,bpkl->bpjl", v[..., :3],
+                                     _hat_basis(t.dtype, t.device), R)
+        return gR0, v[..., 3:], None, None, None, None, None
+
+
+def refine_init_sensitive(poses: Pose, coords: torch.Tensor,
+                          pix: torch.Tensor, cam: Camera,
+                          outer_steps: int = 8, inner_iters: int = 2,
+                          threshold: float = 10.0, beta: float = 1.0,
+                          min_inliers: float = 50.0, damping: float = 1e-4,
+                          max_error: float = 100.0, plain: bool = False
+                          ) -> Pose:
+    """Refined poses (B, P) with the truncated iteration's init-pose
+    gradient (``InitSensitiveRefine``); coords (B, N, 3), pix (B, N, 2)."""
+    kw = dict(outer_steps=outer_steps, inner_iters=inner_iters,
+              threshold=threshold, beta=beta, min_inliers=min_inliers,
+              damping=damping, max_error=max_error)
+    R, t = InitSensitiveRefine.apply(poses.R, poses.t, coords.detach(),
+                                     pix.detach(), cam, kw, plain)
+    return Pose(R, t)

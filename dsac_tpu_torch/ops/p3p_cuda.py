@@ -54,9 +54,9 @@ def p3p_solve(obj: torch.Tensor, pix: torch.Tensor, cam: Camera
     t = torch.empty((M, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((M,), dtype=torch.bool, device=dev)
     worst = torch.empty((M,), dtype=torch.float32, device=dev)
-    _build.launch("dsac_p3p_solve", obj.data_ptr(), pix.data_ptr(), M,
-                  cam.focal, cam.cx, cam.cy, R.data_ptr(), t.data_ptr(),
-                  valid.data_ptr(), worst.data_ptr(), _build.stream_of(obj))
+    _build.launch("dsac_p3p_solve", dev, obj.data_ptr(), pix.data_ptr(),
+                  M, cam.focal, cam.cx, cam.cy, R.data_ptr(), t.data_ptr(),
+                  valid.data_ptr(), worst.data_ptr())
     p3p_solve.launches += 1
     return Pose(R, t), valid, worst
 

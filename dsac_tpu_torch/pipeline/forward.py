@@ -1,17 +1,30 @@
-"""The DSAC forward pass for a batch of frames (port of
-dsac_tpu/pipeline/forward.py:process_frame and verified_selection, refine
-modes ``"fused"`` and the jnp ``False``).
+"""The DSAC forward passes for a batch of frames (port of
+dsac_tpu/pipeline/forward.py: process_frame, process_frame_softam,
+make_refiners and verified_selection).
 
 stratified subsample -> coordinate CNN -> minimal-set P3P sampling ->
 scoring -> softmax, argmax or draw -> IRLS refinement, of the winner, of
 the top-K scored hypotheses with the largest final inlier count served
-(``verify_topk``), or of the whole pool (``refine_all``).
+(``verify_topk``), or of the whole pool (``refine_all``).  SoftAM
+(``process_frame_softam``) averages the pool by softmax weight instead and
+refines only the average.
 
 Scoring is ``"fused_soft"`` (the score kernel: reprojection and
-soft-inlier sum in one pass, no error surface) or ``"cnn"`` (the diff-map
+soft-inlier sum in one pass, no error surface), ``"cnn"`` (the diff-map
 kernel writes the (B, H, N) error surface, whose (G, G) maps the score
-CNN scores).  Sampling is ``"two_phase"``, fixed-T through the P3P kernel
-(``True``) or fixed-T through the PyTorch solver (``False``).
+CNN scores) or ``"cnn_torch"`` (the same surface in PyTorch,
+differentiable: training takes it because the reference trains through
+its jnp diff-maps, ops/diffmap.py:26, and no diff-map kernel has a
+backward).  Sampling is ``"two_phase"``, fixed-T through the P3P kernel
+(``True``) or fixed-T through the PyTorch solver (``False``, which
+training takes because the reference trains through its jnp solver,
+ops/sampling.py:223-256).
+
+Refinement (``make_refiners``) is ``"fused"``/``True`` (the refine kernel,
+no gradient), ``"unroll"``/``False`` (the PyTorch IRLS, differentiated by
+autograd through every step), ``"implicit"`` (the refine kernel's fixed
+point and one differentiable GN step there) or ``"implicit_jnp"`` (the
+same with the PyTorch IRLS for the fixed point).
 
 Where the reference vmaps one frame, this carries a leading frame axis B
 through every stage, so each kernel launches once per batch.
@@ -22,11 +35,15 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from dsac_tpu_torch.config import Camera, DSACConfig
-from dsac_tpu_torch.geometry.pose import Pose
+from dsac_tpu_torch.config import Camera, DSACConfig, PoseConfig
+from dsac_tpu_torch.geometry.gn import implicit_refine_step
+from dsac_tpu_torch.geometry.pose import Pose, pose_from_vec6, pose_to_vec6
+from dsac_tpu_torch.ops.diffmap import diffmaps as diffmaps_torch
 from dsac_tpu_torch.ops.diffmap_cuda import diffmaps, soft_inlier_scores
-from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused, refine_pose_ref
+from dsac_tpu_torch.ops.gn_cuda import (refine_init_sensitive,
+                                        refine_pose_fused, refine_pose_ref)
 from dsac_tpu_torch.ops.sampling import (gather_rows, put_rows,
                                          sample_minimal_sets,
                                          sample_minimal_sets_two_phase,
@@ -39,6 +56,11 @@ from dsac_tpu_torch.ops.select import (draw_hypothesis, shannon_entropy,
 CoordFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # diff-maps (M, G, G) -> scores (M,)
 ScoreFn = Callable[[torch.Tensor], torch.Tensor]
+
+# hypotheses per chunk of the differentiable implicit step in refine-all
+# training (forward.py:43): each chunk's (B, C, N, 2, 6) Jacobians are
+# recomputed in the backward instead of kept
+_IMPLICIT_STEP_CHUNK = 1024
 
 
 class FrameDraws(NamedTuple):
@@ -82,24 +104,87 @@ def verified_selection(res: FrameResult) -> FrameResult:
                                    gather_rows(res.refined.t, c)[:, 0]))
 
 
-def process_frames_batched(images: torch.Tensor, coord_fn: CoordFn,
-                           cam: Camera, cfg: DSACConfig,
-                           verify_topk: int = 0,
-                           draws: FrameDraws = FrameDraws(),
-                           generator: torch.Generator | None = None,
-                           scoring: str = "fused_soft",
-                           score_fn: ScoreFn | None = None,
-                           sampling: str | bool = "two_phase",
-                           refine_all: bool = False,
-                           fused_refine: bool = True) -> FrameResult:
-    """The forward pass of a batch of frames images (B, H, W, 3).
+def make_refiners(coords: torch.Tensor, pixf: torch.Tensor, cam: Camera,
+                  p: PoseConfig, mode, inject_init: bool = False):
+    """The refiner of pools (B, P) against coords (B, N, 3), pixf (B, N, 2)
+    for a refinement ``mode`` (forward.py:117-284): a function
+    pool -> (refined pool, soft inlier counts (B, P)).
 
-    scoring: "fused_soft" or "cnn" (``score_fn`` scores the maps);
-    sampling: "two_phase", True (fixed-T, P3P kernel) or False (fixed-T,
-    PyTorch solver); refine_all refines the whole pool in one launch and
-    serves the drawn winner; fused_refine=False refines with the PyTorch
-    IRLS (geometry/gn.py:refine_pose) instead of the refine kernel.
+    ``"fused"``/True: the refine kernel, without gradient (serving).
+    ``"unroll"``/False: the reference's jnp IRLS (8 x 2), differentiated by
+    autograd through every step.  ``"implicit"``: the refine kernel's
+    fixed point from detached inputs, then one differentiable GN step
+    there, whose coordinate gradient is the implicit-function gradient.
+    ``"implicit_jnp"``: the same with the 8 x 2 PyTorch IRLS for the fixed
+    point.  ``inject_init`` (implicit modes; SoftAM) adds the truncated
+    iteration's init-pose sensitivity as a zero-valued straight-through
+    term: on ``"implicit"`` the refine kernel's finite-difference backward
+    (``refine_init_sensitive``), on ``"implicit_jnp"`` autograd through the
+    PyTorch IRLS with the coordinates detached.  Hypotheses whose soft
+    inlier count ended below ``min_inliers`` keep the fixed point and get
+    no pose-path gradient.
     """
+    kw = dict(outer_steps=p.refinement_steps, inner_iters=p.gn_inner_steps,
+              threshold=p.inlier_threshold_2d, beta=p.inlier_beta,
+              min_inliers=p.min_inliers, damping=p.gn_damping,
+              max_error=p.max_reprojection_error)
+
+    def contiguous(pool: Pose) -> Pose:
+        return Pose(pool.R.contiguous(), pool.t.contiguous())
+
+    def fused(pool: Pose, c: torch.Tensor = coords):
+        return refine_pose_fused(contiguous(pool), c, pixf, cam, **kw)
+
+    def torch_irls(pool: Pose, c: torch.Tensor = coords):
+        return refine_pose_ref(pool, c, pixf, cam, **kw)
+
+    def step(R: torch.Tensor, t: torch.Tensor):
+        out = implicit_refine_step(
+            Pose(R, t), coords[:, None], pixf[:, None], cam,
+            threshold=p.inlier_threshold_2d, beta=p.inlier_beta,
+            damping=p.gn_damping, max_error=p.max_reprojection_error)
+        return out.R, out.t
+
+    def implicit(pool: Pose, fixed_point, fd_init: bool):
+        pool0 = Pose(pool.R.detach(), pool.t.detach())
+        refined, n_in = fixed_point(pool0, coords.detach())
+        P, ch = pool.t.shape[1], _IMPLICIT_STEP_CHUNK
+        if P > ch:
+            parts = [checkpoint(step, refined.R[:, i:i + ch],
+                                refined.t[:, i:i + ch], use_reentrant=False)
+                     for i in range(0, P, ch)]
+            stepped = Pose(torch.cat([a for a, _ in parts], dim=1),
+                           torch.cat([b for _, b in parts], dim=1))
+        else:
+            stepped = Pose(*step(refined.R, refined.t))
+        if inject_init:
+            if fd_init:
+                s = refine_init_sensitive(pool, coords, pixf, cam, **kw)
+            else:
+                s, _ = torch_irls(pool, coords.detach())
+            stepped = Pose(stepped.R + s.R - s.R.detach(),
+                           stepped.t + s.t - s.t.detach())
+        ok = (n_in >= p.min_inliers)[..., None]
+        return Pose(torch.where(ok[..., None], stepped.R, refined.R),
+                    torch.where(ok, stepped.t, refined.t)), n_in
+
+    if mode in (True, "fused"):
+        return fused
+    if mode in (False, "unroll"):
+        return torch_irls
+    if mode == "implicit":
+        return lambda pool: implicit(pool, fused, fd_init=True)
+    if mode == "implicit_jnp":
+        return lambda pool: implicit(pool, torch_irls, fd_init=False)
+    raise ValueError(f"unknown refine mode {mode!r}")
+
+
+def _front_end(images: torch.Tensor, coord_fn: CoordFn, cam: Camera,
+               cfg: DSACConfig, draws: FrameDraws,
+               generator: torch.Generator | None, scoring: str,
+               score_fn: ScoreFn | None, sampling):
+    """Sampling -> coordinates (mm) -> hypotheses -> scores -> softmax.
+    Returns (pixels, coords, pixf, sets, dmaps, scores, probs, entropy)."""
     B = images.shape[0]
     p = cfg.pose
     grid = cfg.net.subsample_size
@@ -120,15 +205,20 @@ def process_frames_batched(images: torch.Tensor, coord_fn: CoordFn,
                                    idx=draws.idx, generator=generator)
     else:
         raise ValueError(f"unknown sampling mode {sampling!r}")
-    R, t = sets.poses.R.contiguous(), sets.poses.t.contiguous()
     if scoring == "fused_soft":
+        R, t = sets.poses.R.contiguous(), sets.poses.t.contiguous()
         scores = soft_inlier_scores(R, t, coords, pixf, cam,
                                     threshold=p.inlier_threshold_2d,
                                     beta=p.score_beta,
                                     max_error=p.max_reprojection_error)
         dmaps = coords.new_zeros((B, 0, grid, grid))
-    elif scoring == "cnn":
-        dm = diffmaps(R, t, coords, pixf, cam, p.max_reprojection_error)
+    elif scoring in ("cnn", "cnn_torch"):
+        if scoring == "cnn":
+            R, t = sets.poses.R.contiguous(), sets.poses.t.contiguous()
+            dm = diffmaps(R, t, coords, pixf, cam, p.max_reprojection_error)
+        else:
+            dm = diffmaps_torch(sets.poses, coords, pixf, cam,
+                                p.max_reprojection_error)
         # the pixel order of stratified_sample is row-major (gy, gx), so
         # each row of the surface is one (G, G) map (forward.py:110)
         dmaps = dm.reshape(B, -1, grid, grid)
@@ -138,17 +228,34 @@ def process_frames_batched(images: torch.Tensor, coord_fn: CoordFn,
     # invalid hypotheses are buried, like the reference's zero-pose fallback
     scores = torch.where(sets.valid, scores, -1e9)
     probs = softmax_scores(scores)
-    ent = shannon_entropy(probs)
+    return (pixels, coords, pixf, sets, dmaps, scores, probs,
+            shannon_entropy(probs))
 
-    refiner = refine_pose_fused if fused_refine else refine_pose_ref
 
-    def refine(pool: Pose):
-        return refiner(
-            Pose(pool.R.contiguous(), pool.t.contiguous()), coords, pixf,
-            cam, outer_steps=p.refinement_steps,
-            inner_iters=p.gn_inner_steps, threshold=p.inlier_threshold_2d,
-            beta=p.inlier_beta, min_inliers=p.min_inliers,
-            damping=p.gn_damping, max_error=p.max_reprojection_error)
+def process_frames_batched(images: torch.Tensor, coord_fn: CoordFn,
+                           cam: Camera, cfg: DSACConfig,
+                           verify_topk: int = 0,
+                           draws: FrameDraws = FrameDraws(),
+                           generator: torch.Generator | None = None,
+                           scoring: str = "fused_soft",
+                           score_fn: ScoreFn | None = None,
+                           sampling: str | bool = "two_phase",
+                           refine_all: bool = False,
+                           fused_refine=True) -> FrameResult:
+    """The forward pass of a batch of frames images (B, H, W, 3).
+
+    scoring: "fused_soft", "cnn" or "cnn_torch" (``score_fn`` scores the
+    maps); sampling: "two_phase", True (fixed-T, P3P kernel) or False
+    (fixed-T, PyTorch solver); refine_all refines the whole pool and
+    serves the drawn winner; fused_refine is the refinement mode of
+    ``make_refiners``: True/"fused" (the refine kernel), False/"unroll"
+    (the PyTorch IRLS), "implicit" or "implicit_jnp".
+    """
+    p = cfg.pose
+    pixels, coords, pixf, sets, dmaps, scores, probs, ent = _front_end(
+        images, coord_fn, cam, cfg, draws, generator, scoring, score_fn,
+        sampling)
+    refine = make_refiners(coords, pixf, cam, p, fused_refine)
 
     H = scores.shape[1]
     if refine_all:
@@ -206,3 +313,33 @@ def process_frame(image: torch.Tensor, coord_fn: CoordFn, cam: Camera,
                                  verify_topk, draws, generator, **kwargs)
     return FrameResult(*[type(f)(*(x[0] for x in f))
                          if isinstance(f, Pose) else f[0] for f in res])
+
+
+def process_frame_softam(images: torch.Tensor, coord_fn: CoordFn,
+                         score_fn: ScoreFn, cam: Camera, cfg: DSACConfig,
+                         refine_mode=False, draws: FrameDraws = FrameDraws(),
+                         generator: torch.Generator | None = None
+                         ) -> FrameResult:
+    """The soft-argmax forward pass of a batch of frames (forward.py:
+    422-478), as training runs it (fixed-T sampling through the PyTorch
+    solver, the score CNN on PyTorch diff-maps): the softmax weights
+    average the pool's (Rodrigues, t) 6-vectors (cnn_softam.h:1082-1094),
+    and only the average is refined, with the init-pose sensitivity
+    injected (``make_refiners``, ``inject_init``).  ``refined`` is the
+    unrefined pool, ``final`` the refined average, ``chosen`` the most
+    probable hypothesis."""
+    p = cfg.pose
+    pixels, coords, pixf, sets, dmaps, scores, probs, ent = _front_end(
+        images, coord_fn, cam, cfg, draws, generator, "cnn_torch", score_fn,
+        False)
+    avg = pose_from_vec6(torch.sum(probs[..., None]
+                                   * pose_to_vec6(sets.poses), dim=1))
+    refine = make_refiners(coords, pixf, cam, p, refine_mode,
+                           inject_init=True)
+    out, n_in = refine(Pose(avg.R[:, None], avg.t[:, None]))
+    return FrameResult(pixels, coords, sets.poses, sets.valid,
+                       sets.indices, dmaps, scores, probs, ent,
+                       torch.argmax(probs, dim=-1), sets.poses,
+                       n_in.expand_as(scores), Pose(out.R[:, 0],
+                                                    out.t[:, 0]),
+                       torch.zeros_like(sets.valid))

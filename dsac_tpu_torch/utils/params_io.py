@@ -1,10 +1,13 @@
-"""Numpy-only reader of the reference's npz weight artifacts (the format
-of dsac_tpu/utils/params_io.py) and the carry-over into PyTorch modules.
+"""Numpy-only reader and writer of the reference's npz weight artifacts
+(the format of dsac_tpu/utils/params_io.py) and the carry-over between
+them and PyTorch modules.
 
 Keys are ``|``-joined Flax parameter paths, e.g. ``params|Conv_3|kernel``;
 convolution kernels are HWIO and become OIHW, dense kernels are
 (in, out) and become ``nn.Linear``'s (out, in); all are stored f16 and
-carried over as f32.  Nothing converted is written to disk.
+carried over as f32.  ``save_params_npz`` writes a port's net back in the
+same layout, so that the reference and the port's ``--weights`` serve a
+model the port trained.
 """
 
 from __future__ import annotations
@@ -60,6 +63,39 @@ def score_net_from_flax(flat: dict[str, np.ndarray],
         for i, fc in enumerate(net.dense):
             _copy_layer(flat, f"Dense_{i}", fc, (1, 0))
     return net
+
+
+def to_flax_flat(net: torch.nn.Module,
+                 values: dict[str, torch.Tensor] | None = None
+                 ) -> dict[str, np.ndarray]:
+    """The Flax-layout flat dict of a DenseCoordNet's or ScoreNet's
+    parameters, or of ``values`` keyed like ``net.named_parameters()``
+    (their gradients, say), as f32 numpy."""
+    values = dict(net.named_parameters()) if values is None else values
+    flat = {}
+    for name, v in values.items():
+        group, idx, kind = name.split(".")
+        a = v.detach().float().cpu().numpy()
+        if group == "convs":
+            key = f"params|Conv_{idx}|"
+            a = a.transpose(2, 3, 1, 0) if kind == "weight" else a
+        elif group == "dense":
+            key = f"params|Dense_{idx}|"
+            a = a.T if kind == "weight" else a
+        else:
+            raise ValueError(f"no Flax name for parameter {name}")
+        flat[key + ("kernel" if kind == "weight" else "bias")] = \
+            np.ascontiguousarray(a)
+    return flat
+
+
+def save_params_npz(path: str | Path, net: torch.nn.Module,
+                    dtype=np.float16) -> None:
+    """Write a net in the reference's npz layout (params_io.py:21), f32
+    arrays stored as ``dtype`` (f16 by default, as the reference does)."""
+    out = {k: v.astype(dtype) for k, v in to_flax_flat(net).items()}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
 
 
 def load_coord_net_npz(path: str | Path,

@@ -31,7 +31,11 @@ def events_ms(fn, inner: int = 1, samples: int = 1) -> float:
 
 
 def is_device_event(evt) -> bool:
-    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+    """A device kernel's (or copy's) event: not a user annotation, whose
+    device-side range (``Optimizer.step``, say) spans kernels and the gaps
+    between them."""
+    return (str(getattr(evt, "device_type", "")).endswith("CUDA")
+            and not getattr(evt, "is_user_annotation", False))
 
 
 def device_us(evt) -> float:

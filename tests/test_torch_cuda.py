@@ -12,7 +12,11 @@ diff-maps rtol 1e-4, atol 1e-2 (tests/test_pallas_kernels.py:42-53); IRLS
 statistics n_in rtol 1e-3 / atol 0.05, JtJ and Jtr rtol 2e-3 / atol 2.0
 (tests/test_gn_pallas.py:46-55); the stepwise refiner against the refine
 kernel at the refine kernel's bars, and in test_ransac at the served
-hypothesis at tests/test_gn_pallas.py:112-115's (1e-2 mm, 1e-5).
+hypothesis at tests/test_gn_pallas.py:112-115's (1e-2 mm, 1e-5).  The
+refine kernel's init-pose backward against its plain version: cosine >=
+0.999 and norm ratio 0.99-1.01 (tests/test_torch_implicit_grad.py).  With
+two cards or more, a kernel launched on tensors of the second card while
+the first is current gives the result it gives there.
 """
 
 import numpy as np
@@ -25,10 +29,14 @@ from dsac_tpu_torch.geometry.rotation import so3_exp
 from dsac_tpu_torch.ops.diffmap_cuda import (diffmaps, diffmaps_ref,
                                              soft_inlier_scores,
                                              soft_inlier_scores_ref)
-from dsac_tpu_torch.ops.gn_cuda import (irls_stats, irls_stats_ref,
+from dsac_tpu_torch.geometry.pose import pose_to_vec6
+from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine, irls_stats,
+                                        irls_stats_ref,
+                                        refine_init_sensitive,
                                         refine_pose_fused,
+                                        refine_pose_fused_ref,
                                         refine_pose_fused_steps,
-                                        refine_pose_ref, unpack_stats)
+                                        unpack_stats)
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve, p3p_solve_ref
 from dsac_tpu_torch.ops.sampling import gather_rows
 from torch_problems import frames
@@ -86,7 +94,7 @@ def test_refine_matches_plain_version(problem):
     poses = Pose((so3_exp(noise(0.005)) @ gt.R[:, None]).contiguous(),
                  (gt.t[:, None] + noise(15.0)).contiguous())
     a, na = refine_pose_fused(poses, coords, pix, CAM)
-    b, nb = refine_pose_ref(poses, coords, pix, CAM)
+    b, nb = refine_pose_fused_ref(poses, coords, pix, CAM)
     assert float((a.t - b.t).abs().max()) <= 2.0
     assert float((a.R - b.R).abs().max()) <= 1e-4
     assert float((na - nb).abs().max()) <= 0.5
@@ -172,3 +180,51 @@ def test_test_ransac_evaluates_two_frames(cuda):
     # tests/test_gn_pallas.py:112-115, at the served hypothesis
     assert res["refine_check"]["served_max_abs_dt_mm"] <= 1e-2
     assert res["refine_check"]["served_max_abs_dR"] <= 1e-5
+
+
+def test_init_backward_matches_plain_version(problem):
+    """One launch of the refine kernel on the 12 probes of each pose."""
+    rng, gt, coords, pix = problem
+    R0 = _pool(rng, gt, 0.15, 300.0, P=3)
+
+    def grad(plain):
+        R = R0.R.clone().requires_grad_()
+        t = R0.t.clone().requires_grad_()
+        out = refine_init_sensitive(Pose(R, t), coords, pix, CAM,
+                                    outer_steps=4, inner_iters=1, plain=plain)
+        pose_to_vec6(out).sum().backward()
+        return torch.cat([R.grad.flatten(1), t.grad.flatten(1)], 1)
+
+    before = InitSensitiveRefine.launches
+    k = grad(False)
+    assert InitSensitiveRefine.launches == before + 1
+    p = grad(True)
+    assert InitSensitiveRefine.launches == before + 1
+    assert torch.isfinite(k).all()
+    cos = torch.nn.functional.cosine_similarity(k.double(), p.double(), 1)
+    ratio = k.double().norm(dim=1) / p.double().norm(dim=1)
+    assert bool((cos >= 0.999).all()) and bool(
+        ((ratio >= 0.99) & (ratio <= 1.01)).all()), (cos, ratio)
+
+
+def test_launch_runs_on_the_tensors_device(problem):
+    """Tensors on cuda:1 while cuda:0 is current: the launch goes to the
+    tensors' device and stream and gives the result it gives there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng, gt, coords, pix = problem
+    pool = _pool(rng, gt, 0.01, 30.0, P=8)
+    want, n_want = refine_pose_fused(pool, coords, pix, CAM)
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        got, n_got = refine_pose_fused(
+            Pose(pool.R.to(other), pool.t.to(other)), coords.to(other),
+            pix.to(other), CAM)
+        scores = soft_inlier_scores(pool.R.to(other), pool.t.to(other),
+                                    coords.to(other), pix.to(other), CAM)
+    assert got.t.device == other
+    torch.testing.assert_close(got.t.cpu(), want.t.cpu())
+    torch.testing.assert_close(n_got.cpu(), n_want.cpu())
+    torch.testing.assert_close(
+        scores.cpu(), soft_inlier_scores(pool.R, pool.t, coords, pix,
+                                         CAM).cpu())

@@ -30,7 +30,8 @@ from dsac_tpu_torch.geometry.rotation import so3_exp
 from dsac_tpu_torch.ops import _build
 from dsac_tpu_torch.ops.diffmap_cuda import (soft_inlier_scores,
                                              soft_inlier_scores_ref)
-from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused, refine_pose_ref
+from dsac_tpu_torch.ops.gn_cuda import (refine_pose_fused,
+                                        refine_pose_fused_ref)
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve, p3p_solve_ref
 from torch_problems import T, frames
 
@@ -133,7 +134,7 @@ class TestWrappers:
             soft_inlier_scores(R, t, coords, pix, CAM),
             soft_inlier_scores_ref(R, t, coords, pix, CAM))
         a, na = refine_pose_fused(Pose(R, t), coords, pix, CAM)
-        b, nb = refine_pose_ref(Pose(R, t), coords, pix, CAM)
+        b, nb = refine_pose_fused_ref(Pose(R, t), coords, pix, CAM)
         torch.testing.assert_close(a.t, b.t)
         torch.testing.assert_close(na, nb)
         obj, img = coords[0, :8].reshape(2, 4, 3), pix[0, :8].reshape(2, 4, 2)

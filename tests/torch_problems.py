@@ -3,6 +3,7 @@ tests/test_torch_kernels.py, tests/test_torch_cuda.py and the score-net
 and score-CNN pipeline tests."""
 
 import numpy as np
+import pytest
 import torch
 
 from dsac_tpu_torch.geometry.pose import Pose
@@ -48,3 +49,15 @@ def random_score_flat(rng, width_mult):
             np.sqrt(2.0 / a)
         flat[f"params|Dense_{i}|bias"] = rng.normal(size=b) * 0.1
     return {k: v.astype(np.float32) for k, v in flat.items()}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's tests (autouse where imported):
+    the suite runs test files in parallel worker processes, and torch's
+    OpenMP threads in all of them oversubscribe the cores, which slowed
+    the port's small training tests a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
