@@ -7,11 +7,21 @@ Phases, one JSON line each (flushed, so a run that is cut shows where it
 stopped):
 
 1. device         the card, and its name and power limit from nvidia-smi;
-2. build          nvcc builds dsac_tpu_torch/csrc/*.cu into one library;
+2. build          nvcc builds dsac_tpu_torch/csrc/*.cu into one library,
+                  with ptxas's registers, shared memory and spills per
+                  kernel;
 3. kernels        each CUDA kernel against its plain PyTorch version on the
                   card, at the shapes of a batch of 8 frames, with its bar;
+                  the P3P kernel at each sampling shape (two-phase
+                  sampling's two phases and fixed-T sampling, `by_shape`)
+                  and the refine kernel at each regime of the main path
+                  (utils/kernel_problems.py: REFINE_REGIMES, `regimes`), each
+                  with the layout that
+                  ops/p3p_cuda.py:p3p_layout or ops/gn_cuda.py:
+                  refine_layout picks for it, its times and its bound;
                   `ms` and `plain_ms` are medians of 20 CUDA-event timings
-                  (of 10 back-to-back kernel calls, of 1 plain call),
+                  (of 10 back-to-back kernel calls, of 1 plain call; the
+                  plain refinement of 8 x 256 poses is timed once),
                   `device_ms` the kernel's own device time from
                   torch.profiler; and the stepwise refiner (one IRLS-stats
                   launch per step) against the refine kernel at the
@@ -39,7 +49,9 @@ stopped):
                   SoftAM's "implicit" (with the kernel's init-pose
                   backward) against "implicit_jnp", at the bars of
                   tests/test_implicit_grad.py:224-260 and
-                  tests/test_train.py:257-282; and the init-pose
+                  tests/test_train.py:257-282 (DSAC's score gradient on
+                  each of frames 0-3 where f32 resolves it, which its
+                  f64 twin tells: train_grad says how); and the init-pose
                   backward against its plain version at SoftAM's
                   averaged pose of fixture frames 0-7, 16 steps
                   (softam_average_backward);
@@ -58,7 +70,8 @@ Before each of phases 4-10 the kernels' launch counters are set to 0, and
 they are read just after it, with the phase's peak device memory; each
 phase fails if a kernel of its path was never launched.  Then
 nvidia-smi's line, one JSON line of per-kernel numbers (launches summed
-over phases 4-10), and the last line
+over phases 4-10, by phase, and the kernels phase's check launches apart),
+and the last line
 {"ok": true, "device": {...}}.  Any failed bar or error exits non-zero
 before that last line.  Without a CUDA device, or without the repository
 around this file, it fails.
@@ -93,7 +106,7 @@ REFINE_OPS_PER_SOLVE = 400
 
 SAMPLES = 20  # CUDA-event timings per median
 
-B, H, N, K, T, TOPK = 8, 256, 1600, 32, 16, 4  # serve shapes per batch
+B, H, N, K, T = 8, 256, 1600, 32, 16  # serve shapes per batch
 STEPS = 16  # IRLS steps of a refinement (8 reweightings x 2 GN steps)
 
 # Accuracy at 5 cm / 5 deg of the reference's test_ransac forward pass
@@ -135,6 +148,9 @@ PATHS = {"serve": ("p3p", "soft_inlier_score", "refine_irls"),
 FD_STEPS = 1
 FD_INIT_RAD, FD_INIT_MM = 0.03, 60.0
 TRAIN_ROUNDS = 8
+# train_grad holds DSAC's score gradient on those of fixture frames
+# 0..SCORE_FRAMES-1 where f32 resolves it
+SCORE_FRAMES = 4
 REPO = Path(__file__).resolve().parent
 
 
@@ -154,58 +170,6 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def make_problem(dev, gen):
-    """B frames of N scene coordinates seen from known poses: 4 mm noise
-    and 30% uniform outliers, pixels where the true points project."""
-    import torch
-    from dsac_tpu_torch.config import Camera
-    from dsac_tpu_torch.geometry.pose import Pose, invert, transform
-    from dsac_tpu_torch.geometry.projection import project
-    from dsac_tpu_torch.geometry.rotation import so3_exp
-
-    def rand(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
-    cam = Camera.make(525.0, 640, 480)
-    gt = Pose(so3_exp(randn(B, 3) * 0.4),
-              randn(B, 3) * 200.0 + torch.tensor([0.0, 0.0, -2500.0],
-                                                 device=dev))
-    eye = torch.stack([(rand(B, N) * 2 - 1) * 1200, (rand(B, N) * 2 - 1) * 900,
-                       -(1500 + rand(B, N) * 2000)], dim=-1)
-    ident = Pose(torch.eye(3, device=dev).expand(B, 3, 3),
-                 torch.zeros(B, 3, device=dev))
-    pix = project(ident, eye, cam).contiguous()
-    coords = transform(invert(gt), eye) + randn(B, N, 3) * 4.0
-    outlier = rand(B, N) < 0.3
-    coords = torch.where(outlier[..., None],
-                         (rand(B, N, 3) * 2 - 1) * 3000.0, coords)
-    return cam, gt, coords.contiguous(), pix
-
-
-def reference_problem(dev, gen):
-    """B frames of H poses and N points, drawn as the reference's kernel
-    tests draw them (tests/test_pallas_kernels.py:_random_problem,
-    tests/test_gn_pallas.py:_problem): every point 1-4 m in front of the
-    camera."""
-    import torch
-    from dsac_tpu_torch.geometry.rotation import so3_exp
-
-    def uniform(lo, hi, *shape):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
-
-    R = so3_exp(torch.randn(B, H, 3, generator=gen, device=dev) * 0.5)
-    t = torch.randn(B, H, 3, generator=gen, device=dev) * 300.0
-    t[..., 2] -= 2500.0
-    coords = torch.stack([uniform(-1000, 1000, B, N),
-                          uniform(-800, 800, B, N),
-                          uniform(-500, 500, B, N)], dim=-1)
-    pix = torch.stack([uniform(0, 640, B, N), uniform(0, 480, B, N)], dim=-1)
-    return R.contiguous(), t.contiguous(), coords.contiguous(), pix
 
 
 def excess(a, b, rtol: float, atol: float) -> float:
@@ -255,71 +219,95 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
     import torch
     from dsac_tpu_torch.utils.timing import events_ms, profiled_ms
     from dsac_tpu_torch.geometry.pose import Pose
-    from dsac_tpu_torch.geometry.rotation import so3_exp
+    from dsac_tpu_torch.ops import _build
     from dsac_tpu_torch.ops.diffmap_cuda import (diffmaps, diffmaps_ref,
                                                  soft_inlier_scores,
                                                  soft_inlier_scores_ref)
     from dsac_tpu_torch.ops.gn_cuda import (irls_stats, irls_stats_ref,
+                                            refine_layout,
                                             refine_pose_fused,
                                             refine_pose_fused_ref,
                                             refine_pose_fused_steps,
                                             unpack_stats)
-    from dsac_tpu_torch.ops.p3p_cuda import p3p_solve, p3p_solve_ref
-    from dsac_tpu_torch.ops.sampling import gather_rows
+    from dsac_tpu_torch.ops.p3p_cuda import (p3p_layout, p3p_solve,
+                                             p3p_solve_ref)
+    from dsac_tpu_torch.utils.kernel_problems import (P3P_SHAPES,
+                                                      REFINE_REGIMES,
+                                                      attempt_sets,
+                                                      make_problem,
+                                                      reference_problem,
+                                                      regime_poses)
 
     gen = torch.Generator(device=dev).manual_seed(1305)
-    cam, gt, coords, pix = make_problem(dev, gen)
+    cam, gt, coords, pix = make_problem(B, N, dev, gen)
     rows, failures = [], []
+    sms = _build.sm_count(dev)
 
-    # ---- P3P at both sampling shapes: B*H (phase 1), B*K*(T-1) ----
-    agree, dR_med, dR_max = [], [], []
-    ms = plain_ms = n_bytes = n_ops = 0.0
-    dev_times = []
-    pools = {}
-    for lanes in (H, K * (T - 1)):
-        idx = torch.randint(0, N, (B, lanes, 4), generator=gen, device=dev)
-        obj = gather_rows(coords, idx).reshape(-1, 4, 3).contiguous()
-        img = gather_rows(pix, idx).reshape(-1, 4, 2).contiguous()
+    # ---- P3P at the three sampling shapes: B*H (two-phase sampling's
+    # phase 1), B*K*(T-1) (its phase 2), B*H*T (fixed-T); the row's times
+    # and bound are those of the two-phase batch (phases 1 and 2) ----
+    by_shape, pools = [], {}
+    for lanes in P3P_SHAPES.values():
+        obj, img = attempt_sets(coords, pix, lanes, gen)
+        M = obj.shape[0]
         kp, kv, kw = p3p_solve(obj, img, cam)
         rp, rv, rw = p3p_solve_ref(obj, img, cam)
         kc, rc = kv & (kw < 10.0), rv & (rw < 10.0)
         both = kc & rc
         dR = (kp.R - rp.R).abs().flatten(1).amax(1)[both]
-        agree.append(float((kc == rc).float().mean()))
-        dR_med.append(float(dR.median()) if dR.numel() else 0.0)
-        dR_max.append(float(dR.max()) if dR.numel() else 0.0)
+        shape = {"lanes": M, "layout": list(p3p_layout(M, sms)),
+                 "decision_agreement": float((kc == rc).float().mean()),
+                 "median_abs_dR": float(dR.median()) if dR.numel() else 0.0,
+                 "max_abs_dR": float(dR.max()) if dR.numel() else 0.0}
         finite = all(bool(torch.isfinite(x).all()) for x in (kp.R, kp.t, kw))
         if not finite:
-            failures.append(f"p3p: non-finite output at {lanes} lanes")
+            failures.append(f"p3p: non-finite output at {M} lanes")
         if float(kc.float().mean()) < 0.05 or bool(kc.all()):
-            failures.append(f"p3p: pool of {lanes} lanes lacks valid and "
+            failures.append(f"p3p: pool of {M} lanes lacks valid and "
                             "invalid lanes")
-        ms += events_ms(lambda: p3p_solve(obj, img, cam), 10, SAMPLES)
-        dev_times.append(profiled_ms(lambda: p3p_solve(obj, img, cam), 20,
-                             "p3p_kernel"))
-        plain_ms += events_ms(lambda: p3p_solve_ref(obj, img, cam), 1,
-                              SAMPLES)
-        M = obj.shape[0]
-        n_bytes += M * ((12 + 8) * 4 + (9 + 3 + 1) * 4 + 1)
-        n_ops += M * P3P_OPS_PER_LANE
+        if shape["decision_agreement"] < 0.98:
+            failures.append(f"p3p: decision agreement "
+                            f"{shape['decision_agreement']} < 0.98 at {M} "
+                            "lanes")
+        if shape["median_abs_dR"] >= 1e-3:
+            failures.append(f"p3p: median |dR| {shape['median_abs_dR']} >= "
+                            f"1e-3 at {M} lanes")
+        b_ms, b_by = bound_ms(M * ((12 + 8) * 4 + (9 + 3 + 1) * 4 + 1),
+                              M * P3P_OPS_PER_LANE)
+        shape.update({
+            "ms": events_ms(lambda: p3p_solve(obj, img, cam), 10, SAMPLES),
+            "device_ms": profiled_ms(lambda: p3p_solve(obj, img, cam), 20,
+                                     "p3p_kernel"),
+            "plain_ms": events_ms(lambda: p3p_solve_ref(obj, img, cam), 1,
+                                  SAMPLES),
+            "bound_ms": b_ms, "bound_by": b_by})
+        by_shape.append(shape)
         pools[lanes] = (kp, kv & (kw < 10.0))
-    if min(agree) < 0.98:
-        failures.append(f"p3p: decision agreement {min(agree)} < 0.98")
-    if max(dR_med) >= 1e-3:
-        failures.append(f"p3p: median |dR| {max(dR_med)} >= 1e-3")
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    serve_shapes = by_shape[:2]
+
+    def total(key):
+        vals = [x[key] for x in serve_shapes]
+        return None if None in vals else sum(vals)
+
+    b_ms, b_by = bound_ms(
+        sum(x["lanes"] for x in serve_shapes) * ((12 + 8) * 4 + 13 * 4 + 1),
+        sum(x["lanes"] for x in serve_shapes) * P3P_OPS_PER_LANE)
     rows.append({"name": "p3p", "route": "cuda",
                  "source": "dsac_tpu_torch/csrc/p3p.cu",
                  "replaces": "dsac_tpu/ops/p3p_pallas.py:61",
-                 "max_abs_err": max(dR_max), "decision_agreement": min(agree),
-                 "median_abs_dR": max(dR_med),
-                 "bar": "decision agreement >= 0.98, median |dR| < 1e-3",
-                 "shapes": f"{B * H} + {B * K * (T - 1)} lanes",
-                 "ms": ms, "device_ms": (None if None in dev_times
-                               else sum(dev_times)),
-                 "plain_ms": plain_ms,
-                 "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": None})
+                 "max_abs_err": max(x["max_abs_dR"] for x in by_shape),
+                 "decision_agreement": min(x["decision_agreement"]
+                                           for x in by_shape),
+                 "median_abs_dR": max(x["median_abs_dR"] for x in by_shape),
+                 "bar": "decision agreement >= 0.98, median |dR| < 1e-3, "
+                        "finite, at every shape",
+                 "shapes": f"{B * H} + {B * K * (T - 1)} lanes (a two-phase "
+                           f"serve batch); by_shape adds {B * H * T} "
+                           "(fixed-T)",
+                 "ms": total("ms"), "device_ms": total("device_ms"),
+                 "plain_ms": total("plain_ms"), "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None,
+                 "by_shape": by_shape})
 
     # ---- score: the phase-1 pool, B x H hypotheses x N pixels ----
     hyp = pools[H][0]
@@ -346,43 +334,59 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
                      R, t, coords, pix, cam), 1, SAMPLES),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
-    # ---- refine: TOPK poses per frame near the known pose ----
-    pert = so3_exp(torch.randn(B, TOPK, 3, generator=gen, device=dev) * 0.005)
-    poses = Pose((pert @ gt.R[:, None]).contiguous(),
-                 (gt.t[:, None] + torch.randn(B, TOPK, 3, generator=gen,
-                                              device=dev) * 15.0).contiguous())
-    def refine():
-        return refine_pose_fused(poses, coords, pix, cam)
+    # ---- refine at every regime of the main path (REFINE_REGIMES), in
+    # the layout refine_layout picks; the row's times and bound are those
+    # of the serve batch's top 4 ----
+    regimes = []
+    for name, (nb, P) in REFINE_REGIMES.items():
+        poses = regime_poses(name, gt, Pose(R, t), gen)
+        c, x = coords[:nb].contiguous(), pix[:nb].contiguous()
 
-    kr, kn = refine()
-    rr, rn = refine_pose_fused_ref(poses, coords, pix, cam)
-    dt = float((kr.t - rr.t).abs().max())
-    dRr = float((kr.R - rr.R).abs().max())
-    dn = float((kn - rn).abs().max())
-    if not (dt <= 2.0 and dRr <= 1e-4 and dn <= 0.5):
-        failures.append(f"refine: |dt| {dt} (bar 2 mm), |dR| {dRr} "
-                        f"(bar 1e-4), |dn_in| {dn} (bar 0.5)")
-    steps = 16
-    b_ms, b_by = bound_ms(
-        B * TOPK * 12 * 4 + B * N * 5 * 4 + B * TOPK * 13 * 4,
-        B * TOPK * steps * (N * IRLS_OPS_PER_PIXEL
-                            + REFINE_OPS_PER_SOLVE))
+        def refine():
+            return refine_pose_fused(poses, c, x, cam)
+
+        kr, kn = refine()
+        rr, rn = refine_pose_fused_ref(poses, c, x, cam)
+        dt = float((kr.t - rr.t).abs().max())
+        dRr = float((kr.R - rr.R).abs().max())
+        dn = float((kn - rn).abs().max())
+        finite = all(bool(torch.isfinite(v).all()) for v in (kr.R, kr.t, kn))
+        if not (dt <= 2.0 and dRr <= 1e-4 and dn <= 0.5 and finite):
+            failures.append(f"refine ({name}, B={nb} P={P}): |dt| {dt} (bar "
+                            f"2 mm), |dR| {dRr} (bar 1e-4), |dn_in| {dn} "
+                            f"(bar 0.5), finite {finite}")
+        b_ms, b_by = bound_ms(
+            nb * P * 12 * 4 + nb * N * 5 * 4 + nb * P * 13 * 4,
+            nb * P * STEPS * (N * IRLS_OPS_PER_PIXEL + REFINE_OPS_PER_SOLVE))
+        regimes.append({
+            "regime": name, "shapes": f"B={nb} P={P} N={N} steps={STEPS}",
+            "layout": list(refine_layout(nb * P, P, N, sms)),
+            "max_abs_dt_mm": dt, "max_abs_dR": dRr, "max_abs_dn_in": dn,
+            "ms": events_ms(refine, 10, SAMPLES),
+            "device_ms": profiled_ms(refine, 20, "refine_kernel"),
+            # the plain version of the largest regime is timed once
+            "plain_ms": events_ms(lambda: refine_pose_fused_ref(
+                poses, c, x, cam), 1, 1 if nb * P > H else SAMPLES),
+            "bound_ms": b_ms, "bound_by": b_by})
+    top = next(r for r in regimes if r["regime"] == "serve_top4")
     rows.append({"name": "refine_irls", "route": "cuda",
                  "source": "dsac_tpu_torch/csrc/refine.cu",
                  "replaces": "dsac_tpu/ops/gn_pallas.py:236",
-                 "max_abs_err": dt, "max_abs_dR": dRr, "max_abs_dn_in": dn,
-                 "bar": "|dt| <= 2 mm, |dR| <= 1e-4, |dn_in| <= 0.5",
-                 "shapes": f"B={B} P={TOPK} N={N} steps={steps}",
-                 "ms": events_ms(refine, 10, SAMPLES),
-                 "device_ms": profiled_ms(refine, 20, "refine_kernel"),
-                 "plain_ms": events_ms(lambda: refine_pose_fused_ref(
-                     poses, coords, pix, cam), 1, SAMPLES),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                 "max_abs_err": max(r["max_abs_dt_mm"] for r in regimes),
+                 "max_abs_dR": max(r["max_abs_dR"] for r in regimes),
+                 "max_abs_dn_in": max(r["max_abs_dn_in"] for r in regimes),
+                 "bar": "|dt| <= 2 mm, |dR| <= 1e-4, |dn_in| <= 0.5, "
+                        "finite, at every regime",
+                 "shapes": top["shapes"] + " (serve top 4); regimes "
+                           "lists every one",
+                 **{k: top[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+                 "library_ms": None, "regimes": regimes})
 
     # ---- diffmap and irls_stats: B x H poses x N pixels, at the bars of
     # the reference's kernel tests on the inputs those tests draw, and on
     # the phase-1 pool of the serve path ----
-    Rr, tr, cr, pr = reference_problem(dev, gen)
+    Rr, tr, cr, pr = reference_problem(B, H, N, dev, gen)
 
     def diffmap():
         return diffmaps(R, t, coords, pix, cam)
@@ -691,13 +695,25 @@ def test_ransac_problems(res: dict, launches: dict, path: tuple,
 
 def train_grad(dev) -> tuple[dict, list[str]]:
     """Gradients of one full-width round, per refine mode, on fixture
-    frame 0 with the trained weights and the same draws."""
+    frame 0 with the trained weights and the same draws.
+
+    DSAC's score gradient is p (loss - E[loss]) over the refined pool, and
+    where the pool's hypotheses refine to one pose it is below f32
+    resolution: f32 computations of it then disagree at random cosines
+    (frame 0 is such a frame).  So on each of the first SCORE_FRAMES
+    frames it is also computed with the refine kernel's plain version as
+    the fixed point, in f32 and in f64, and the bar (cosine > 0.95,
+    "implicit" against "unroll") is held on every frame where the plain
+    f32 gradient meets its f64 twin at the bar; the phase fails if no
+    frame does.  On the other frames the readings are reported only."""
     import torch
     from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
     from dsac_tpu_torch.data.synthetic import SyntheticScene
     from dsac_tpu_torch.geometry.pose import Pose
     from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine,
-                                            refine_pose_fused)
+                                            refine_pose_fused,
+                                            refine_pose_fused_ref)
+    from dsac_tpu_torch.pipeline import forward
     from dsac_tpu_torch.pipeline.train import (dense_coord_apply,
                                                e2e_expected_loss)
     from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
@@ -708,22 +724,38 @@ def train_grad(dev) -> tuple[dict, list[str]]:
                                                 sample_attempts=T))
     scene = SyntheticScene(data.image_width, data.image_height,
                            data.focal_length, device=dev)
-    gt = Pose(scene.bench_poses.R[:1], scene.bench_poses.t[:1])
-    image = scene.render(gt)[0]
     coord_net = load_coord_net_npz(REPO / "artifacts" / "coord_e2e.npz", dev)
     score_net = load_score_net_npz(REPO / "artifacts" / "score_e2e.npz", dev)
 
-    def run(softam: bool, mode: str):
+    def plain_fixed_point(dtype):
+        """The refine kernel's plain version in ``dtype``, in its place."""
+        def refine(poses, coords, pix, cam, **kw):
+            out, n_in = refine_pose_fused_ref(
+                Pose(poses.R.to(dtype), poses.t.to(dtype)), coords.to(dtype),
+                pix.to(dtype), cam, **kw)
+            return Pose(out.R.float(), out.t.float()), n_in.float()
+        return refine
+
+    def run(softam: bool, mode: str, frame: int = 0, fixed_point=None):
+        gt = Pose(scene.bench_poses.R[frame:frame + 1],
+                  scene.bench_poses.t[frame:frame + 1])
+        image = scene.render(gt)[0]
         coord_net.zero_grad()
         score_net.zero_grad()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        obj, aux = e2e_expected_loss(
-            lambda im, pix: dense_coord_apply(coord_net, im, pix), score_net,
-            image, gt, data.camera(), cfg, softam=softam, refine_mode=mode,
-            generator=torch.Generator(device=dev).manual_seed(7))
-        obj.backward()
+        if fixed_point is not None:
+            forward.refine_pose_fused = fixed_point
+        try:
+            obj, aux = e2e_expected_loss(
+                lambda im, pix: dense_coord_apply(coord_net, im, pix),
+                score_net, image, gt, data.camera(), cfg, softam=softam,
+                refine_mode=mode,
+                generator=torch.Generator(device=dev).manual_seed(7))
+            obj.backward()
+        finally:
+            forward.refine_pose_fused = refine_pose_fused
         torch.cuda.synchronize()
 
         def flat(net):
@@ -762,14 +794,36 @@ def train_grad(dev) -> tuple[dict, list[str]]:
                 dev, coord_net, score_net, scene, cfg, problems)
             for fn, n in counts.items():
                 fn.launches = n
-        else:
-            if not abs(ri["objective"] - rj["objective"]) < 0.05 * (
-                    abs(rj["objective"]) + 1e-3):
-                problems.append(f"dsac: objective {ri['objective']} vs "
-                                f"{rj['objective']} (bar 5%)")
-            if not s_cos > 0.95:
-                problems.append(f"dsac: score gradient cosine {s_cos} "
-                                "(bar > 0.95)")
+            continue
+        if not abs(ri["objective"] - rj["objective"]) < 0.05 * (
+                abs(rj["objective"]) + 1e-3):
+            problems.append(f"dsac: objective {ri['objective']} vs "
+                            f"{rj['objective']} (bar 5%)")
+        frames = []
+        for i in range(SCORE_FRAMES):
+            gp32, gp64 = (run(False, "implicit", i, plain_fixed_point(d))[2]
+                          for d in (torch.float32, torch.float64))
+            if i > 0:
+                gsi, gsj = (run(False, m, i)[2] for m in modes)
+            f = {"frame": i,
+                 "score_cos": cosine_ratio(gsi, gsj)[0],
+                 "plain_f32_vs_f64": cosine_ratio(gp32, gp64)[0],
+                 "kernel_vs_f64": cosine_ratio(gsi, gp64)[0],
+                 "plain_f32_vs_unroll": cosine_ratio(gp32, gsj)[0],
+                 "score_grad_norm": float(gsi.norm())}
+            f["resolvable_in_f32"] = f["plain_f32_vs_f64"] > 0.95
+            frames.append(f)
+            if f["resolvable_in_f32"] and not (
+                    f["score_cos"] > 0.95
+                    and bool(torch.isfinite(gsi).all())):
+                problems.append(f"dsac: score gradient cosine "
+                                f"{f['score_cos']} on frame {i} (bar > "
+                                "0.95)")
+        out[tag]["score_frames"] = frames
+        if not any(f["resolvable_in_f32"] for f in frames):
+            problems.append("dsac: the score gradient is below f32 "
+                            f"resolution on all of frames 0-"
+                            f"{SCORE_FRAMES - 1}: nothing holds it")
     return out, problems
 
 
@@ -929,15 +983,15 @@ def main() -> int:
 
     path, seconds = _build.build()
     _build.library()
-    emit({"phase": "build", "seconds": seconds, "library": path.name})
+    emit({"phase": "build", "seconds": seconds, "library": path.name,
+          "ptxas": _build.ptxas_report(path)})
 
     t0 = time.perf_counter()
     rows, failures, refine_check = check_kernels(dev)
+    check_launches = {name: fn.launches for name, fn in serve.KERNELS.items()}
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "kernels": rows, "refine_check": refine_check,
-          "failures": failures,
-          "check_launches": {name: fn.launches
-                             for name, fn in serve.KERNELS.items()}})
+          "failures": failures, "check_launches": check_launches})
     if failures:
         print("chip_smoke: kernel check failed: " + "; ".join(failures),
               file=sys.stderr)
@@ -1011,6 +1065,7 @@ def main() -> int:
         row["launches"] = total[row["name"]]
         row["launches_by_phase"] = {k: v[row["name"]]
                                     for k, v in by_phase.items()}
+        row["check_launches"] = check_launches[row["name"]]
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

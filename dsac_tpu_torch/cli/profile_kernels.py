@@ -1,0 +1,190 @@
+"""Device time of the refine and P3P kernels at every shape the main path
+gives them (utils/kernel_problems.py: REFINE_REGIMES, P3P_SHAPES), through
+the wrappers the main path calls (``refine_pose_fused``, ``p3p_solve``),
+so in the layouts that ``ops/gn_cuda.py:refine_layout`` and
+``ops/p3p_cuda.py:p3p_layout`` choose; with ``--sweep``, in every legal
+layout too, each held against the plain version.
+
+    python -m dsac_tpu_torch.cli.profile_kernels
+    python -m dsac_tpu_torch.cli.profile_kernels --sweep
+
+Without ``--sweep`` it uses nothing but those wrappers, the problem
+generators and the timers, so it times an older checkout of the port the
+same way once this file, ``utils/kernel_problems.py`` and
+``utils/timing.py`` are copied into it.
+
+Refine regimes, 16 IRLS steps against N = 1,600 pixels a frame:
+
+  softam_forward   B=1 P=1    SoftAM's averaged pose
+  softam_backward  B=1 P=12   the 12 probes of its init-pose backward
+  serve_top4       B=8 P=4    the verified top 4 of a serve batch
+  test_ransac      B=1 P=256  refine-all of one frame; a DSAC round
+  refine_all       B=8 P=256  refine-all of 8 frames
+
+P3P shapes: 2,048 lanes (a serve batch's first sampling phase, 8 x 256),
+3,840 (its second phase, 8 x 32 x 15) and 32,768 (fixed-T sampling of a
+serve batch, 8 x 256 x 16).
+
+Times: ``queued_ms`` (CUDA events around 20 calls queued behind a sleep
+kernel, median of 5) and ``device_ms`` (torch.profiler, the kernel's own
+time).  Prints one JSON line per regime and shape, and writes them all to
+``--out`` when given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import torch
+
+from dsac_tpu_torch.geometry.pose import Pose
+from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused
+from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
+from dsac_tpu_torch.utils.kernel_problems import (FRAMES, HYPS, N,
+                                                  P3P_SHAPES, REFINE_REGIMES,
+                                                  STEPS, attempt_sets,
+                                                  make_problem, regime_poses)
+from dsac_tpu_torch.utils.timing import profiled_ms, queued_ms
+
+# refine_pose_fused's defaults (the serve config), for launch_refine
+REFINE_KW = dict(threshold=10.0, beta=1.0, min_inliers=50.0, damping=1e-4,
+                 max_error=100.0)
+
+
+def sweep_refine_layouts() -> list:
+    """Every cluster (up to 8) with one pose a CTA, and every power-of-two
+    split of 8 warps, or fewer, into poses and warps without a cluster."""
+    from dsac_tpu_torch.ops.gn_cuda import RefineLayout
+    out = [RefineLayout(c, 1, w) for c in (2, 4, 8) for w in (2, 4, 8)]
+    out += [RefineLayout(1, g, w) for g in (1, 2, 4, 8) for w in (1, 2, 4, 8)
+            if g * w <= 8]
+    return out
+
+
+def refine_errors(got, n_got, want, n_want) -> dict:
+    return {"max_abs_dt_mm": float((got.t - want.t).abs().max()),
+            "max_abs_dR": float((got.R - want.R).abs().max()),
+            "max_abs_dn_in": float((n_got - n_want).abs().max())}
+
+
+def sweep_refine(dev, poses: Pose, coords, pix, cam) -> dict:
+    """The layout refine_layout picks for this regime, and every legal
+    layout timed and held against the plain version, fastest first."""
+    from dsac_tpu_torch.ops import _build
+    from dsac_tpu_torch.ops.gn_cuda import (check_refine_layout,
+                                            launch_refine, refine_layout,
+                                            refine_pose_fused_ref)
+    B, P = poses.t.shape[:2]
+    want, n_want = refine_pose_fused_ref(poses, coords, pix, cam)
+
+    def run(lay):
+        return launch_refine(poses.R, poses.t, coords, pix, cam, STEPS,
+                             layout=lay, **REFINE_KW)
+
+    cands = []
+    for lay in sweep_refine_layouts():
+        try:
+            check_refine_layout(lay, N)
+        except ValueError:
+            continue
+        cands.append({"layout": list(lay),
+                      "queued_ms": queued_ms(lambda: run(lay)),
+                      **refine_errors(*run(lay), want, n_want)})
+    return {"layout": list(refine_layout(B * P, P, N, _build.sm_count(dev))),
+            "candidates": sorted(cands, key=lambda r: r["queued_ms"])}
+
+
+def sweep_p3p(dev, obj, img, cam) -> dict:
+    """The layout p3p_layout picks for this shape, and every threads-a-lane
+    and block size timed and held against the plain version, fastest
+    first."""
+    from dsac_tpu_torch.ops import _build
+    from dsac_tpu_torch.ops.p3p_cuda import (P3PLayout, launch_p3p,
+                                             p3p_layout, p3p_solve_ref)
+    rp, rv, rw = p3p_solve_ref(obj, img, cam)
+    rc = rv & (rw < 10.0)
+    cands = []
+    for tpl in (1, 4):
+        for block in (32, 64, 128, 256):
+            lay = P3PLayout(tpl, block)
+            kp, kv, kw = launch_p3p(obj, img, cam, lay)
+            kc = kv & (kw < 10.0)
+            dR = (kp.R - rp.R).abs().flatten(1).amax(1)[kc & rc]
+            cands.append({
+                "layout": list(lay),
+                "queued_ms": queued_ms(lambda: launch_p3p(obj, img, cam,
+                                                          lay)),
+                "decision_agreement": float((kc == rc).float().mean()),
+                "median_abs_dR": float(dR.median()),
+                "finite": bool(torch.isfinite(kp.R).all()
+                               and torch.isfinite(kw).all())})
+    return {"layout": list(p3p_layout(obj.shape[0], _build.sm_count(dev))),
+            "candidates": sorted(cands, key=lambda r: r["queued_ms"])}
+
+
+def refine_regimes(dev, gen, cam, gt, coords, pix, pool, args) -> list:
+    rows = []
+    for name, (B, P) in REFINE_REGIMES.items():
+        poses = regime_poses(name, gt, pool, gen)
+        c, x = coords[:B].contiguous(), pix[:B].contiguous()
+
+        def refine():
+            return refine_pose_fused(poses, c, x, cam)
+
+        row = {"regime": name, "B": B, "P": P, "N": N, "steps": STEPS,
+               "queued_ms": queued_ms(refine),
+               "device_ms": profiled_ms(refine, 20, "refine_kernel")}
+        if args.sweep:
+            row.update(sweep_refine(dev, poses, c, x, cam))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def p3p_shapes(dev, gen, cam, coords, pix, args) -> list:
+    rows = []
+    for name, lanes in P3P_SHAPES.items():
+        obj, img = attempt_sets(coords, pix, lanes, gen)
+
+        def solve():
+            return p3p_solve(obj, img, cam)
+
+        row = {"shape": name, "lanes": obj.shape[0],
+               "queued_ms": queued_ms(solve),
+               "device_ms": profiled_ms(solve, 20, "p3p_kernel")}
+        if args.sweep:
+            row.update(sweep_p3p(dev, obj, img, cam))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time (and check) every legal layout")
+    ap.add_argument("--out", default=None, help="also write the lines here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_kernels: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1305)
+    cam, gt, coords, pix = make_problem(FRAMES, N, dev, gen)
+    obj, img = attempt_sets(coords, pix, HYPS, gen)
+    pool = p3p_solve(obj, img, cam)[0]
+    pool = Pose(pool.R.reshape(FRAMES, HYPS, 3, 3).contiguous(),
+                pool.t.reshape(FRAMES, HYPS, 3).contiguous())
+    result = {"device": torch.cuda.get_device_name(0),
+              "refine": refine_regimes(dev, gen, cam, gt, coords, pix, pool,
+                                       args),
+              "p3p": p3p_shapes(dev, gen, cam, coords, pix, args)}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result) + "\n")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -13,12 +13,13 @@
 // Bound on the H100: f32 arithmetic, 165 operations against 20 bytes of
 // pixel data that every pose of the frame re-reads from L1/L2; device
 // memory sees each input once and each of the 28 outputs once.  The
-// per-pixel body and the block reduction are refine.cu's own
-// (irls_stats.cuh), so a pass here reproduces one step of the refine
-// kernel bit for bit: 256 threads stride over the pixels with the sums in
-// registers, warp shuffles and one pass through shared memory reduce
-// them.  At the refine-all shape (256 poses a frame) the grid has
-// B * 256 blocks, enough to fill the card.
+// per-pixel body is refine.cu's own (irls_stats.cuh), so the stepwise
+// refiner checks what the refine kernel sums; the reduction is laid out
+// differently (256 threads stride over the pixels, a transposed warp
+// butterfly, one pass through shared memory), so a pass here matches a
+// step of the refine kernel to f32 rounding, not bit for bit.  At the
+// refine-all shape (256 poses a frame) the grid has B * 256 blocks,
+// enough to fill the card.
 
 #include <cuda_runtime.h>
 
@@ -38,7 +39,7 @@ __global__ void irls_stats_kernel(const float* __restrict__ R,
                                   int N, float f, float cx, float cy,
                                   float max_err, float tau, float inv_beta,
                                   float* __restrict__ out) {
-  __shared__ float partial[kWarps][kStats];
+  __shared__ float partial[kWarps][32];
 
   const int pid = blockIdx.x;  // flat (frame, pose) index
   const int b = pid / P;
@@ -53,10 +54,23 @@ __global__ void irls_stats_kernel(const float* __restrict__ R,
   float acc[kStats];
 #pragma unroll
   for (int k = 0; k < kStats; ++k) acc[k] = 0.0f;
-  dsac_irls::accumulate<kThreads>(Rp, tp, cb, pb, N, tid, f, cx, cy,
-                                  max_err, tau, inv_beta, acc);
-  float s = dsac_irls::block_sum<kWarps>(acc, partial, tid);
-  if (tid < kStats) out[kStats * static_cast<long long>(pid) + tid] = s;
+  auto load = [&](int n, float& x, float& y, float& z, float& u,
+                  float& v) {
+    x = cb[3 * n];
+    y = cb[3 * n + 1];
+    z = cb[3 * n + 2];
+    u = pb[2 * n];
+    v = pb[2 * n + 1];
+  };
+  dsac_irls::add_pixels(Rp, tp, tid, kThreads, N, load, f, cx, cy, max_err,
+                        tau, inv_beta, acc);
+  partial[tid / 32][tid % 32] = dsac_irls::warp_sum_transposed(acc, tid % 32);
+  __syncthreads();
+  if (tid < kStats) {
+    float s = partial[0][tid];
+    for (int w = 1; w < kWarps; ++w) s += partial[w][tid];
+    out[kStats * static_cast<long long>(pid) + tid] = s;
+  }
 }
 
 }  // namespace

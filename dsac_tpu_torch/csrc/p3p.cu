@@ -1,4 +1,5 @@
-// Batched 4-point minimal P3P: one thread per attempt lane.
+// Batched 4-point minimal P3P: a quad of 4 threads per attempt lane (one
+// thread per quartic root), or one thread per lane.
 //
 // Replaces dsac_tpu/ops/p3p_pallas.py:_p3p_kernel (wrapper
 // p3p_solve_pallas).  Per lane: pixel bearings -> Grunert quartic ->
@@ -13,14 +14,22 @@
 // per root (3 Newton steps, ranges, triad alignment, 4th-point check) and
 // ~150 for the worst-of-4 support error.
 //
-// Bound on the H100: neither memory nor the f32 pipes at the serve shapes:
-// a launch of 2k-4k lanes fills under a quarter of the card's threads, so
-// the launch and the dependent chain of one lane's arithmetic set the time.
-// The design keeps every intermediate in registers (no shared memory, no
-// intermediates in device memory), so one launch serves every lane of a
-// whole batch of frames.  CUDA's acosf and cbrtf take the place of the
-// TPU kernel's polynomial acos and exp/log cube root: only the Newton
-// steps set the root's accuracy.
+// Bound on the H100: neither memory nor the f32 pipes at the serve shapes
+// (2k-4k lanes a launch): the dependent chain of one lane's arithmetic
+// sets the time.  So the kernel spreads a lane over a quad of 4 adjacent
+// threads (kThreadsPerLane = 4): each runs the root-independent prefix
+// (~350 operations, redundantly: exchanging it would cost as many
+// shuffles as it saves), then thread k polishes and checks root k; the
+// quad picks the winner with two shuffle steps of an argmin over the
+// 4th-point error that keeps the sequential loop's tie-break (the lowest
+// root wins a tie), ORs the validity, and takes the worst support error
+// with one support point per thread.  That cuts the chain to about a
+// third and puts 4x the threads on the card.  With one thread per lane
+// (kThreadsPerLane = 1) the same code runs the four roots in order.
+// ops/p3p_cuda.py:p3p_layout picks the variant and the block size by the
+// number of lanes.  Every intermediate stays in registers.  CUDA's acosf
+// and cbrtf take the place of the TPU kernel's polynomial acos and
+// exp/log cube root: only the Newton steps set the root's accuracy.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,17 +57,44 @@ __device__ __forceinline__ V3 normalize(V3 a) {
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
+template <typename T>
+__device__ __forceinline__ T pick4(int k, T a0, T a1, T a2, T a3) {
+  return k == 0 ? a0 : k == 1 ? a1 : k == 2 ? a2 : a3;
+}
 
+// Reprojection error of scene point X at pixel (u, v) under R, t, with
+// the depth guard |z| < 1e-8 -> -1e-8.
+__device__ __forceinline__ float reproj_err(const float (&R)[9],
+                                            const float (&t)[3], V3 X,
+                                            float u, float v, float f,
+                                            float cx, float cy) {
+  float ex = R[0] * X.x + R[1] * X.y + R[2] * X.z + t[0];
+  float ey = R[3] * X.x + R[4] * X.y + R[5] * X.z + t[1];
+  float ez = R[6] * X.x + R[7] * X.y + R[8] * X.z + t[2];
+  float ezg = fabsf(ez) < 1e-8f ? -1e-8f : ez;
+  float du = u - (-f * ex / ezg + cx);
+  float dv = v - (f * ey / ezg + cy);
+  return sqrtf(du * du + dv * dv + 1e-8f);
+}
+
+template <int kThreadsPerLane>
 __global__ void p3p_kernel(const float* __restrict__ obj,
                            const float* __restrict__ pix, int M, float f,
                            float cx, float cy, float* __restrict__ R_out,
                            float* __restrict__ t_out,
                            bool* __restrict__ valid_out,
                            float* __restrict__ worst_out) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long thread =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = static_cast<int>(thread / kThreadsPerLane);
+  const int tq = static_cast<int>(thread % kThreadsPerLane);  // root
+  // a quad is 4 adjacent threads of one warp: it leaves (or stays) whole
   if (lane >= M) return;
-  const float* o = obj + 12 * lane;
-  const float* p = pix + 8 * lane;
+  const unsigned quad = kThreadsPerLane == 1
+                            ? 0u
+                            : 0xfu << ((threadIdx.x & 31) & ~3u);
+  const float* o = obj + 12 * static_cast<long long>(lane);
+  const float* p = pix + 8 * static_cast<long long>(lane);
 
   V3 X[4];
   float U[4], Vp[4];
@@ -144,14 +180,14 @@ __global__ void p3p_kernel(const float* __restrict__ obj,
   float sq_ba = sqrtf(fmaxf(y2a, 0.0f));
   float sq_bb = sqrtf(fmaxf(y2b, 0.0f));
 
-  float y_quads[4] = {sq / 2.0f + sq1, sq / 2.0f - sq1, -sq / 2.0f + sq2,
-                      -sq / 2.0f - sq2};
-  bool real_quads[4] = {disc1 >= -1e-6f, disc1 >= -1e-6f, disc2 >= -1e-6f,
-                        disc2 >= -1e-6f};
-  float y_biq[4] = {sq_ba, -sq_ba, sq_bb, -sq_bb};
+  // the four roots of the depressed quartic (k = 0..3), and whether each
+  // is real, for the general and the biquadratic case
+  float y_q0 = sq / 2.0f + sq1, y_q1 = sq / 2.0f - sq1;
+  float y_q2 = -sq / 2.0f + sq2, y_q3 = -sq / 2.0f - sq2;
+  bool rq1 = disc1 >= -1e-6f, rq2 = disc2 >= -1e-6f;
+  float y_biq0 = sq_ba, y_biq1 = -sq_ba, y_biq2 = sq_bb, y_biq3 = -sq_bb;
   bool ra = (disc_b >= 0.0f) && (y2a >= 0.0f);
   bool rb = (disc_b >= 0.0f) && (y2b >= 0.0f);
-  bool real_biq[4] = {ra, ra, rb, rb};
 
   bool nondegen = fminf(fminf(a2, b2), c2) > 1.0f;  // > 1 mm^2
 
@@ -163,15 +199,24 @@ __global__ void p3p_kernel(const float* __restrict__ obj,
            (X[0].y + X[1].y + X[2].y) / 3.0f,
            (X[0].z + X[1].z + X[2].z) / 3.0f};
 
-  float best_err = 1e30f;
+  // Each thread takes the roots k = tq, tq + kThreadsPerLane, ... in
+  // order and keeps the first with the least 4th-point error; the
+  // sequential loop's `err4m < best_err` with best_err = 1e30 at the start
+  // is key < best_key with key = err4 where ok and err4 < 1e30, else inf
+  // (NaN too).  A finite key needs a valid root, so a lane with no valid
+  // root keeps the identity (safeSolvePnP's zero pose).
+  float best_key = INFINITY;
+  int best_k = 4;
   float bR[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
   float bt[3] = {0.f, 0.f, 0.f};
   bool any_valid = false;
 
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float v = (biq ? y_biq[k] : y_quads[k]) - b / 4.0f;
-    bool is_real = biq ? real_biq[k] : real_quads[k];
+  for (int r = 0; r < 4 / kThreadsPerLane; ++r) {
+    const int k = tq + r * kThreadsPerLane;
+    float v = (biq ? pick4(k, y_biq0, y_biq1, y_biq2, y_biq3)
+                   : pick4(k, y_q0, y_q1, y_q2, y_q3)) - b / 4.0f;
+    bool is_real = biq ? (k < 2 ? ra : rb) : (k < 2 ? rq1 : rq2);
     // Newton polish against the normalised coefficients
     for (int it = 0; it < 3; ++it) {
       float dpv = ((4.0f * A4 * v + 3.0f * A3) * v + 2.0f * A2) * v + A1;
@@ -215,58 +260,90 @@ __global__ void p3p_kernel(const float* __restrict__ obj,
                    cY.z - (Rk[6] * cX.x + Rk[7] * cX.y + Rk[8] * cX.z)};
 
     // 4th-point disambiguation
-    float ex = Rk[0] * X[3].x + Rk[1] * X[3].y + Rk[2] * X[3].z + tk[0];
-    float ey = Rk[3] * X[3].x + Rk[4] * X[3].y + Rk[5] * X[3].z + tk[1];
     float ez = Rk[6] * X[3].x + Rk[7] * X[3].y + Rk[8] * X[3].z + tk[2];
     bool front = ez < 0.0f;
-    float ezg = fabsf(ez) < 1e-8f ? -1e-8f : ez;
-    float du = U[3] - (-f * ex / ezg + cx);
-    float dv = Vp[3] - (f * ey / ezg + cy);
-    float err4 = sqrtf(du * du + dv * dv + 1e-8f);
+    float err4 = reproj_err(Rk, tk, X[3], U[3], Vp[3], f, cx, cy);
 
     bool ok = rvalid && front;
     any_valid = any_valid || ok;
-    float err4m = ok ? err4 : 1e30f;
-    if (err4m < best_err) {
-      best_err = err4m;
+    float key = ok && err4 < 1e30f ? err4 : INFINITY;
+    if (key < best_key) {
+      best_key = key;
+      best_k = k;
       for (int j = 0; j < 9; ++j) bR[j] = Rk[j];
       for (int j = 0; j < 3; ++j) bt[j] = tk[j];
     }
   }
 
-  if (!any_valid) {  // identity fallback (safeSolvePnP zero pose)
-    for (int j = 0; j < 9; ++j) bR[j] = (j % 4 == 0) ? 1.0f : 0.0f;
-    for (int j = 0; j < 3; ++j) bt[j] = 0.0f;
-  }
-
-  // worst reprojection error over the 4 support points
   float worst = 0.0f;
-  for (int i = 0; i < 4; ++i) {
-    float ex = bR[0] * X[i].x + bR[1] * X[i].y + bR[2] * X[i].z + bt[0];
-    float ey = bR[3] * X[i].x + bR[4] * X[i].y + bR[5] * X[i].z + bt[1];
-    float ez = bR[6] * X[i].x + bR[7] * X[i].y + bR[8] * X[i].z + bt[2];
-    float ezg = fabsf(ez) < 1e-8f ? -1e-8f : ez;
-    float du = U[i] - (-f * ex / ezg + cx);
-    float dv = Vp[i] - (f * ey / ezg + cy);
-    worst = fmaxf(worst, sqrtf(du * du + dv * dv + 1e-8f));
+  if (kThreadsPerLane == 1) {
+    for (int i = 0; i < 4; ++i)
+      worst = fmaxf(worst, reproj_err(bR, bt, X[i], U[i], Vp[i], f, cx, cy));
+  } else {
+    // the quad's argmin (ties to the lower root) and OR
+    for (int off = 1; off < 4; off <<= 1) {
+      float other_key = __shfl_xor_sync(quad, best_key, off);
+      int other_k = __shfl_xor_sync(quad, best_k, off);
+      if (other_key < best_key ||
+          (other_key == best_key && other_k < best_k)) {
+        best_key = other_key;
+        best_k = other_k;
+      }
+      any_valid = __shfl_xor_sync(quad, static_cast<int>(any_valid), off) ||
+                  any_valid;
+    }
+    // the winner's pose on every thread of the quad (identity if none)
+    const bool won = best_key < INFINITY;
+    const int src = ((threadIdx.x & 31) & ~3) | (won ? best_k : 0);
+    for (int j = 0; j < 9; ++j) {
+      float x = __shfl_sync(quad, bR[j], src);
+      bR[j] = won ? x : (j % 4 == 0 ? 1.0f : 0.0f);
+    }
+    for (int j = 0; j < 3; ++j) {
+      float x = __shfl_sync(quad, bt[j], src);
+      bt[j] = won ? x : 0.0f;
+    }
+    // worst reprojection error over the 4 support points, one a thread
+    worst = fmaxf(worst, reproj_err(bR, bt,
+                                    pick4(tq, X[0], X[1], X[2], X[3]),
+                                    pick4(tq, U[0], U[1], U[2], U[3]),
+                                    pick4(tq, Vp[0], Vp[1], Vp[2], Vp[3]),
+                                    f, cx, cy));
+    for (int off = 1; off < 4; off <<= 1)
+      worst = fmaxf(worst, __shfl_xor_sync(quad, worst, off));
   }
-
-  for (int j = 0; j < 9; ++j) R_out[9 * lane + j] = bR[j];
-  for (int j = 0; j < 3; ++j) t_out[3 * lane + j] = bt[j];
-  valid_out[lane] = any_valid;
-  worst_out[lane] = worst;
+  if (tq == 0) {
+    const long long l = lane;
+    for (int j = 0; j < 9; ++j) R_out[9 * l + j] = bR[j];
+    for (int j = 0; j < 3; ++j) t_out[3 * l + j] = bt[j];
+    valid_out[l] = any_valid;
+    worst_out[l] = worst;
+  }
 }
 
 }  // namespace
 
+// Solves M lanes with threads_per_lane (1 or 4) threads each, in blocks of
+// `block` threads (a multiple of 32), as ops/p3p_cuda.py:p3p_layout
+// chooses.  Returns a CUDA error code (cudaErrorInvalidValue for a layout
+// the kernel does not take).
 extern "C" int dsac_p3p_solve(const float* obj, const float* pix, int M,
-                              float f, float cx, float cy, float* R,
+                              float f, float cx, float cy,
+                              int threads_per_lane, int block, float* R,
                               float* t, bool* valid, float* worst,
                               cudaStream_t stream) {
   if (M <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (M + threads - 1) / threads;
-  p3p_kernel<<<blocks, threads, 0, stream>>>(obj, pix, M, f, cx, cy, R, t,
-                                             valid, worst);
+  if (block < 32 || block > 1024 || block % 32 != 0 ||
+      (threads_per_lane != 1 && threads_per_lane != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = static_cast<long long>(M) * threads_per_lane;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + block - 1) / block);
+  if (threads_per_lane == 4)
+    p3p_kernel<4><<<blocks, block, 0, stream>>>(obj, pix, M, f, cx, cy, R, t,
+                                                valid, worst);
+  else
+    p3p_kernel<1><<<blocks, block, 0, stream>>>(obj, pix, M, f, cx, cy, R, t,
+                                                valid, worst);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,11 @@
 One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
 into ``dsac_tpu_torch/_build/libdsac_kernels_<hash>.so``; the hash covers
 the sources and the headers they include (``csrc/*.cuh``), so an edit
-rebuilds.  The library has a plain C interface
-(each launcher takes device pointers, sizes, scalars and the stream, and
-returns ``cudaGetLastError()``) and is loaded with ``ctypes``: no PyTorch
-headers are compiled, which keeps the build to seconds.
+rebuilds.  ptxas's report (registers, shared memory, spills per kernel)
+is kept beside the library (``ptxas_report``).  The library has a plain C
+interface (each launcher takes device pointers, sizes, scalars and the
+stream, and returns a CUDA error code) and is loaded with ``ctypes``: no
+PyTorch headers are compiled, which keeps the build to seconds.
 
 Nothing is built when this module is imported; the first kernel launch
 builds (or finds) the library.
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,11 +37,11 @@ _F = ctypes.c_float
 
 # launcher name -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
-    "dsac_p3p_solve": [_P, _P, _I, _F, _F, _F, _P, _P, _P, _P, _P],
+    "dsac_p3p_solve": [_P, _P, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
     "dsac_soft_inlier_scores": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                                 _F, _F, _P, _P],
     "dsac_refine_pose": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                         _F, _F, _F, _P, _P, _P, _P],
+                         _F, _F, _F, _I, _I, _I, _P, _P, _P, _P],
     "dsac_diffmaps": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "dsac_irls_stats": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                         _P, _P],
@@ -84,16 +86,60 @@ def build() -> tuple[Path, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *map(str, sources())]
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
+           str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out, seconds
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_NUMBERS = {
+    "stack_bytes": re.compile(r"(\d+) bytes stack frame"),
+    "spill_store_bytes": re.compile(r"(\d+) bytes spill stores"),
+    "spill_load_bytes": re.compile(r"(\d+) bytes spill loads"),
+    "registers": re.compile(r"Used (\d+) registers"),
+    "static_smem_bytes": re.compile(r"(\d+) bytes smem"),
+}
+
+
+def kernel_name(mangled: str) -> str:
+    """``refine_kernel`` or ``p3p_kernel<4>`` of a mangled kernel name."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while m := re.match(r"\d+", mangled[pos:]):  # <length><identifier>
+        pos += m.end() + int(m.group())
+        name = mangled[pos - int(m.group()):pos]
+        if name.endswith("_kernel"):
+            arg = re.match(r"ILi(\d+)E", mangled[pos:])
+            return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
+def ptxas_report(library: Path) -> dict[str, dict[str, int]]:
+    """Per kernel of a library that ``build`` made: registers a thread,
+    static shared memory, stack frame and spill bytes, as ``nvcc -Xptxas
+    -v`` reported them."""
+    report: dict[str, dict[str, int]] = {}
+    kernel = None
+    for line in library.with_suffix(".ptxas.txt").read_text().splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            kernel = kernel_name(m.group(1))
+            report[kernel] = {}
+            continue
+        if kernel is None:
+            continue
+        for key, pattern in _PTXAS_NUMBERS.items():
+            m = pattern.search(line)
+            if m:
+                report[kernel][key] = int(m.group(1))
+    return report
 
 
 @functools.cache
@@ -106,6 +152,12 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -9,10 +9,12 @@ Ports of dsac_tpu/ops/gn_pallas.py, with a leading frame axis: poses
   one launch.  The kernel runs ``outer_steps * inner_iters`` single-GN
   IRLS steps (as dsac_tpu/pipeline/forward.py:158 sets it); its plain
   version ``refine_pose_fused_ref`` runs the same steps in PyTorch
-  (geometry/gn.py:refine_pose with ``inner_iters=1``).  ``refine_pose_ref``
-  is the reference's jnp refiner, ``outer_steps`` reweightings of
-  ``inner_iters`` GN steps: the same fixed point by another iteration,
-  which ``fused_refine=False`` selects.
+  (geometry/gn.py:refine_pose with ``inner_iters=1``).  ``refine_layout``
+  picks the kernel's layout from the number of poses: a thread-block
+  cluster per pose on small grids, several poses of one frame per CTA on
+  large ones.  ``refine_pose_ref`` is the reference's jnp refiner,
+  ``outer_steps`` reweightings of ``inner_iters`` GN steps: the same fixed
+  point by another iteration, which ``fused_refine=False`` selects.
 * ``refine_init_sensitive`` (<- make_init_sensitivity_refiner,
   gn_pallas.py:469-544): the refine kernel as a ``torch.autograd.Function``
   whose backward is the reference's dRefineHyp, J_init^T g by central
@@ -29,6 +31,8 @@ the backward counts its own in ``InitSensitiveRefine.launches``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -81,21 +85,113 @@ def refine_pose_fused_ref(poses: Pose, coords: torch.Tensor,
                        max_error=max_error)
 
 
-def _launch_refine(R0: torch.Tensor, t0: torch.Tensor, coords: torch.Tensor,
-                   pix: torch.Tensor, cam: Camera, steps: int,
-                   threshold: float, beta: float, min_inliers: float,
-                   damping: float, max_error: float
-                   ) -> tuple[Pose, torch.Tensor]:
-    """One launch of the refine kernel on checked CUDA tensors (counted by
-    the caller)."""
+class RefineLayout(NamedTuple):
+    """How csrc/refine.cu lays the poses out: ``cluster`` CTAs (a
+    thread-block cluster) share one pose's pixels, or, with ``cluster``
+    1, a CTA holds ``poses_per_cta`` poses of one frame; each pose gets
+    ``warps_per_pose`` warps in each of its CTAs."""
+
+    cluster: int
+    poses_per_cta: int
+    warps_per_pose: int
+
+    @property
+    def threads(self) -> int:
+        return self.poses_per_cta * self.warps_per_pose * 32
+
+
+# limits of csrc/refine.cu on Hopper: its __launch_bounds__, the portable
+# cluster size, and the shared memory a block can have; and its static
+# shared memory: the double-buffered warp sums and cluster slots (8 x 32
+# floats each), and the slots' two mbarriers
+REFINE_MAX_THREADS = 256
+MAX_CLUSTER = 8
+SMEM_LIMIT_BYTES = 232_448
+REFINE_STATIC_SMEM_BYTES = 4 * 2 * 2 * 8 * 32 + 2 * 8
+# warps a cluster's CTA gives its pose; the large-grid layout gives each
+# pose as many warps (up to 8) as keep about this many warps an SM
+CLUSTER_WARPS = 4
+WARPS_PER_SM = 16
+
+
+def refine_smem_bytes(layout: RefineLayout, N: int) -> int:
+    """Shared memory of one CTA: its slice of the frame's N pixels (x, y,
+    z, u, v as float32) and the static sums."""
+    return 20 * -(-N // layout.cluster) + REFINE_STATIC_SMEM_BYTES
+
+
+def check_refine_layout(layout: RefineLayout, N: int) -> None:
+    """Raise ValueError unless csrc/refine.cu takes ``layout`` at N
+    pixels a frame."""
+    c, g, w = layout
+    problems = []
+    if c not in (1, 2, 4, 8):
+        problems.append(f"cluster {c} is not 1, 2, 4 or {MAX_CLUSTER}")
+    if g < 1 or w < 1 or layout.threads > REFINE_MAX_THREADS:
+        problems.append(f"{g} poses x {w} warps a CTA is not 1 to "
+                        f"{REFINE_MAX_THREADS} threads")
+    if c > 1 and g != 1:
+        problems.append("a cluster serves one pose")
+    if refine_smem_bytes(layout, N) > SMEM_LIMIT_BYTES:
+        problems.append(f"{N} pixels a frame need "
+                        f"{refine_smem_bytes(layout, N)} bytes of shared "
+                        f"memory a CTA, more than {SMEM_LIMIT_BYTES}")
+    if problems:
+        raise ValueError(f"refine layout {tuple(layout)}: "
+                         + "; ".join(problems))
+
+
+def refine_layout(num_poses: int, P: int, N: int,
+                  sm_count: int) -> RefineLayout:
+    """The refine kernel's layout for ``num_poses`` poses, ``P`` of them
+    a frame, against ``N`` pixels a frame, on a card of ``sm_count`` SMs.
+
+    Small grids (at most half as many poses as SMs: SoftAM's 1 pose, its
+    backward's 12 probes, serving's top 4 of 8 frames) get a cluster of
+    MAX_CLUSTER CTAs of CLUSTER_WARPS warps per pose.  Larger grids get one
+    CTA per group of poses of one frame, each pose as many warps (a power
+    of two, at most 8) as keeps about WARPS_PER_SM warps an SM, and as many
+    poses a CTA as 8 warps hold (at most P): 8 warps and 1 pose a CTA at
+    256 poses (the shape of the one-block-per-pose kernel this replaced),
+    1 warp and 8 poses at 2,048.  These are the fastest layouts of the
+    H100 sweep (``cli/profile_kernels.py --sweep``, PERF.md).  A frame too
+    large for one CTA's shared memory is split over a cluster.  Raises
+    ValueError where no layout takes N."""
+    if 2 * num_poses <= sm_count:
+        layout = RefineLayout(MAX_CLUSTER, 1, CLUSTER_WARPS)
+    else:
+        warps = 1
+        while (warps < 8
+               and num_poses * warps * 2 <= WARPS_PER_SM * sm_count):
+            warps *= 2
+        layout = RefineLayout(1, max(1, min(8 // warps, P)), warps)
+    while (refine_smem_bytes(layout, N) > SMEM_LIMIT_BYTES
+           and layout.cluster < MAX_CLUSTER):
+        layout = RefineLayout(layout.cluster * 2, 1, layout.warps_per_pose)
+    check_refine_layout(layout, N)
+    return layout
+
+
+def launch_refine(R0: torch.Tensor, t0: torch.Tensor, coords: torch.Tensor,
+                  pix: torch.Tensor, cam: Camera, steps: int,
+                  threshold: float, beta: float, min_inliers: float,
+                  damping: float, max_error: float,
+                  layout: RefineLayout | None = None
+                  ) -> tuple[Pose, torch.Tensor]:
+    """One launch of the refine kernel on checked CUDA tensors, in
+    ``layout`` (``refine_layout``'s by default).  Not counted: the caller
+    counts its launches."""
     B, P, N, dev = _build.check_poses(R0, t0, coords, pix)
+    if layout is None:
+        layout = refine_layout(B * P, P, N, _build.sm_count(dev))
+    check_refine_layout(layout, N)
     R = torch.empty_like(R0)
     t = torch.empty_like(t0)
     n_in = torch.empty((B, P), dtype=torch.float32, device=dev)
     _build.launch("dsac_refine_pose", dev, R0.data_ptr(), t0.data_ptr(),
                   coords.data_ptr(), pix.data_ptr(), B, P, N, steps,
                   cam.focal, cam.cx, cam.cy, max_error, threshold,
-                  1.0 / beta, min_inliers, damping, R.data_ptr(),
+                  1.0 / beta, min_inliers, damping, *layout, R.data_ptr(),
                   t.data_ptr(), n_in.data_ptr())
     return Pose(R, t), n_in
 
@@ -115,8 +211,8 @@ def refine_pose_fused(poses: Pose, coords: torch.Tensor, pix: torch.Tensor,
         return refine_pose_fused_ref(poses, coords, pix, cam, outer_steps,
                                      inner_iters, threshold, beta,
                                      min_inliers, damping, max_error)
-    out = _launch_refine(R0, t0, coords, pix, cam, outer_steps * inner_iters,
-                         threshold, beta, min_inliers, damping, max_error)
+    out = launch_refine(R0, t0, coords, pix, cam, outer_steps * inner_iters,
+                        threshold, beta, min_inliers, damping, max_error)
     refine_pose_fused.launches += 1
     return out
 
@@ -264,7 +360,7 @@ class InitSensitiveRefine(torch.autograd.Function):
                 out, _ = refine_pose_fused_ref(probes, coords, pix, ctx.cam,
                                                **kw)
             else:
-                out, _ = _launch_refine(
+                out, _ = launch_refine(
                     probes.R, probes.t, coords, pix, ctx.cam,
                     kw["outer_steps"] * kw["inner_iters"], kw["threshold"],
                     kw["beta"], kw["min_inliers"], kw["damping"],

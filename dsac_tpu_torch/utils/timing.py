@@ -30,6 +30,33 @@ def events_ms(fn, inner: int = 1, samples: int = 1) -> float:
     return statistics.median(times)
 
 
+# cycles of the sleep kernel that ``queued_ms`` puts ahead of a burst:
+# ~5 ms at the H100's clock, longer than the host takes to queue a burst
+SLEEP_CYCLES = 10_000_000
+
+
+def queued_ms(fn, reps: int = 20, samples: int = 5) -> float:
+    """Device time of one call in ms: CUDA events around ``reps`` calls
+    queued behind a sleep kernel, so that the device runs them back to back
+    without waiting on the host's launch path; the median over
+    ``samples``, after one warm-up call.  Unlike ``events_ms`` it does not
+    count the host's time per call where that exceeds the kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def is_device_event(evt) -> bool:
     """A device kernel's (or copy's) event: not a user annotation, whose
     device-side range (``Optimizer.step``, say) spans kernels and the gaps

@@ -7,7 +7,10 @@ there without the conftest:
 
 Bars as in tests/test_torch_kernels.py: P3P decision agreement >= 0.98 and
 median |dR| < 1e-3; score max abs error <= 1e-3; refine |dt| <= 2 mm,
-|dR| <= 1e-4, |dn_in| <= 0.5.  As in tests/test_torch_diffmap_stats.py:
+|dR| <= 1e-4, |dn_in| <= 0.5.  The refine and P3P kernels are held at
+each of their layouts (ops/gn_cuda.py:RefineLayout, ops/p3p_cuda.py:
+P3PLayout), on ragged sizes too, and the refine layouts against each
+other at the refine bar.  As in tests/test_torch_diffmap_stats.py:
 diff-maps rtol 1e-4, atol 1e-2 (tests/test_pallas_kernels.py:42-53); IRLS
 statistics n_in rtol 1e-3 / atol 0.05, JtJ and Jtr rtol 2e-3 / atol 2.0
 (tests/test_gn_pallas.py:46-55); the stepwise refiner against the refine
@@ -30,14 +33,17 @@ from dsac_tpu_torch.ops.diffmap_cuda import (diffmaps, diffmaps_ref,
                                              soft_inlier_scores,
                                              soft_inlier_scores_ref)
 from dsac_tpu_torch.geometry.pose import pose_to_vec6
-from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine, irls_stats,
-                                        irls_stats_ref,
+from dsac_tpu_torch.ops import _build, gn_cuda
+from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine, RefineLayout,
+                                        irls_stats, irls_stats_ref,
+                                        launch_refine,
                                         refine_init_sensitive,
                                         refine_pose_fused,
                                         refine_pose_fused_ref,
                                         refine_pose_fused_steps,
                                         unpack_stats)
-from dsac_tpu_torch.ops.p3p_cuda import p3p_solve, p3p_solve_ref
+from dsac_tpu_torch.ops.p3p_cuda import (P3PLayout, launch_p3p, p3p_layout,
+                                         p3p_solve, p3p_solve_ref)
 from dsac_tpu_torch.ops.sampling import gather_rows
 from torch_problems import frames
 
@@ -61,31 +67,57 @@ def problem(cuda):
         pix.to(cuda)
 
 
-def test_p3p_and_score_match_plain_versions(problem):
+@pytest.mark.parametrize("threads_per_lane", [4, 1])
+@pytest.mark.parametrize("M", [1, 3, 2048, 32768])
+def test_p3p_and_score_match_plain_versions(problem, M, threads_per_lane):
     rng, gt, coords, pix = problem
-    idx = torch.from_numpy(rng.integers(0, 1600, size=(2, 256, 4))).to(
-        coords.device)
-    obj = gather_rows(coords, idx).reshape(-1, 4, 3).contiguous()
-    img = gather_rows(pix, idx).reshape(-1, 4, 2).contiguous()
-    before = p3p_solve.launches
-    kp, kv, kw = p3p_solve(obj, img, CAM)
-    assert p3p_solve.launches == before + 1
+    idx = torch.from_numpy(rng.integers(0, 1600, size=(2, M // 2 or 1, 4))
+                           ).to(coords.device)
+    obj = gather_rows(coords, idx).reshape(-1, 4, 3)[:M].contiguous()
+    img = gather_rows(pix, idx).reshape(-1, 4, 2)[:M].contiguous()
+    block = p3p_layout(M, _build.sm_count(coords.device)).block
+    kp, kv, kw = launch_p3p(obj, img, CAM, P3PLayout(threads_per_lane, block))
     rp, rv, rw = p3p_solve_ref(obj, img, CAM)
     kc, rc = kv & (kw < 10), rv & (rw < 10)
     assert float((kc == rc).float().mean()) >= 0.98
     both = kc & rc
-    assert float((kp.R - rp.R).abs().flatten(1).amax(1)[both].median()) \
-        < 1e-3
-    assert torch.isfinite(kp.R).all() and torch.isfinite(kw).all()
-
-    R = kp.R.reshape(2, 256, 3, 3).contiguous()
-    t = kp.t.reshape(2, 256, 3).contiguous()
+    if both.any():
+        assert float((kp.R - rp.R).abs().flatten(1).amax(1)[both].median()
+                     ) < 1e-3
+    assert torch.isfinite(kp.R).all() and torch.isfinite(kp.t).all() \
+        and torch.isfinite(kw).all()
+    if M != 2048 or threads_per_lane != 4:
+        return
+    before = p3p_solve.launches
+    sp, _, _ = p3p_solve(obj, img, CAM)  # the default layout, counted
+    assert p3p_solve.launches == before + 1
+    assert torch.equal(sp.R, kp.R)
+    R = kp.R.reshape(2, M // 2, 3, 3).contiguous()
+    t = kp.t.reshape(2, M // 2, 3).contiguous()
     err = (soft_inlier_scores(R, t, coords, pix, CAM)
            - soft_inlier_scores_ref(R, t, coords, pix, CAM)).abs().max()
     assert float(err) <= 1e-3
 
 
-def test_refine_matches_plain_version(problem):
+# every layout of the refine kernel the layout function picks on an H100
+# (clusters of 8 and 2; 2 poses of 4 warps and 8 poses of 1 warp a CTA),
+# and others it can take
+REFINE_LAYOUTS = [RefineLayout(8, 1, 4), RefineLayout(2, 1, 4),
+                  RefineLayout(1, 2, 4), RefineLayout(1, 8, 1),
+                  RefineLayout(4, 1, 8), RefineLayout(1, 1, 8),
+                  RefineLayout(1, 4, 2), RefineLayout(8, 1, 1)]
+
+
+def _refine_bar(a, na, b, nb):
+    assert float((a.t - b.t).abs().max()) <= 2.0
+    assert float((a.R - b.R).abs().max()) <= 1e-4
+    assert float((na - nb).abs().max()) <= 0.5
+
+
+@pytest.mark.parametrize("layout", [None] + REFINE_LAYOUTS,
+                         ids=lambda x: "auto" if x is None else
+                         "c{}g{}w{}".format(*x))
+def test_refine_matches_plain_version(problem, layout):
     rng, gt, coords, pix = problem
     def noise(scale):
         return torch.from_numpy(rng.normal(size=(2, 4, 3)) * scale).float(
@@ -93,11 +125,59 @@ def test_refine_matches_plain_version(problem):
 
     poses = Pose((so3_exp(noise(0.005)) @ gt.R[:, None]).contiguous(),
                  (gt.t[:, None] + noise(15.0)).contiguous())
-    a, na = refine_pose_fused(poses, coords, pix, CAM)
+    if layout is None:
+        before = refine_pose_fused.launches
+        a, na = refine_pose_fused(poses, coords, pix, CAM)
+        assert refine_pose_fused.launches == before + 1
+    else:
+        a, na = launch_refine(poses.R, poses.t, coords, pix, CAM, 16, 10.0,
+                              1.0, 50.0, 1e-4, 100.0, layout=layout)
     b, nb = refine_pose_fused_ref(poses, coords, pix, CAM)
-    assert float((a.t - b.t).abs().max()) <= 2.0
-    assert float((a.R - b.R).abs().max()) <= 1e-4
-    assert float((na - nb).abs().max()) <= 0.5
+    _refine_bar(a, na, b, nb)
+
+
+@pytest.mark.parametrize("N", [14, 100, 1601])
+def test_refine_layouts_agree_on_ragged_frames(problem, N):
+    """Frames of N pixels: N = 14 leaves a CTA of a cluster of 8 without a
+    pixel, N = 100 leaves most threads without one; every layout against
+    the plain version and against the others.  min_inliers is 0 so that
+    no pose freezes."""
+    rng, gt, coords, pix = problem
+    c, x = coords[:, :N].contiguous(), pix[:, :N].contiguous()
+    pool = _pool(rng, gt, 0.005, 15.0, P=5)
+    kw = dict(threshold=10.0, beta=1.0, min_inliers=0.0, damping=1e-4,
+              max_error=100.0)
+    b, nb = refine_pose_fused_ref(pool, c, x, CAM, outer_steps=16,
+                                  inner_iters=1, **kw)
+    outs = [launch_refine(pool.R, pool.t, c, x, CAM, 16, layout=lay, **kw)
+            for lay in REFINE_LAYOUTS]
+    for a, na in outs:
+        assert torch.isfinite(a.R).all() and torch.isfinite(a.t).all()
+        _refine_bar(a, na, b, nb)
+        _refine_bar(a, na, *outs[0])
+
+
+@pytest.mark.parametrize("layout", REFINE_LAYOUTS,
+                         ids=lambda x: "c{}g{}w{}".format(*x))
+def test_refine_freezes_and_stays_finite(problem, layout):
+    """A pose below min_inliers from the first step comes back as it went
+    in; a pose whose projection overflows (R scaled by 1e38: inf - inf in
+    the residual, NaN statistics) is kept by the NaN guard and comes back
+    finite."""
+    rng, gt, coords, pix = problem
+    far = _pool(rng, gt, 0.8, 2000.0, P=3)
+    R = far.R.clone()
+    R[:, 2] = gt.R * 1e38
+    t = far.t.clone()
+    t[:, 2] = gt.t
+    a, na = launch_refine(R, t, coords, pix, CAM, 16, 10.0, 1.0, 50.0, 1e-4,
+                          100.0, layout=layout)
+    _, nb = refine_pose_fused_ref(Pose(R, t), coords, pix, CAM)
+    frozen = nb[:, :2] < 50.0
+    assert frozen.all(), nb
+    assert torch.equal(a.R, R) and torch.equal(a.t, t)
+    assert torch.isfinite(na).all()
+    torch.testing.assert_close(na[:, :2], nb[:, :2], rtol=0.0, atol=0.5)
 
 
 def _pool(rng, gt, scale_w, scale_t, P=64):
@@ -182,9 +262,16 @@ def test_test_ransac_evaluates_two_frames(cuda):
     assert res["refine_check"]["served_max_abs_dR"] <= 1e-5
 
 
-def test_init_backward_matches_plain_version(problem):
-    """One launch of the refine kernel on the 12 probes of each pose."""
+@pytest.mark.parametrize("layout", [None] + REFINE_LAYOUTS,
+                         ids=lambda x: "auto" if x is None else
+                         "c{}g{}w{}".format(*x))
+def test_init_backward_matches_plain_version(problem, layout, monkeypatch):
+    """One launch of the refine kernel on the 12 probes of each pose, in
+    the layout that refine_layout picks or in the one given (for both the
+    forward and the backward)."""
     rng, gt, coords, pix = problem
+    if layout is not None:
+        monkeypatch.setattr(gn_cuda, "refine_layout", lambda *a: layout)
     R0 = _pool(rng, gt, 0.15, 300.0, P=3)
 
     def grad(plain):
