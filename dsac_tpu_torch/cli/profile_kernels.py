@@ -1,12 +1,14 @@
-"""Device time of the refine and P3P kernels at every shape the main path
-gives them (utils/kernel_problems.py: REFINE_REGIMES, P3P_SHAPES), through
-the wrappers the main path calls (``refine_pose_fused``, ``p3p_solve``),
-so in the layouts that ``ops/gn_cuda.py:refine_layout`` and
-``ops/p3p_cuda.py:p3p_layout`` choose; with ``--sweep``, in every legal
-layout too, each held against the plain version.
+"""Device time of the refine, P3P, score and diff-map kernels at every
+shape the main path gives them (utils/kernel_problems.py: REFINE_REGIMES,
+P3P_SHAPES, SCORE_SHAPES, DIFFMAP_SHAPES), through the wrappers the main
+path calls (``refine_pose_fused``, ``p3p_solve``, ``soft_inlier_scores``,
+``diffmaps``), so in the layouts that ``ops/gn_cuda.py:refine_layout``,
+``ops/p3p_cuda.py:p3p_layout`` and ``ops/diffmap_cuda.py:score_layout`` /
+``diffmap_layout`` choose; with ``--sweep``, in every legal layout too,
+each held against the plain version.
 
     python -m dsac_tpu_torch.cli.profile_kernels
-    python -m dsac_tpu_torch.cli.profile_kernels --sweep
+    python -m dsac_tpu_torch.cli.profile_kernels --sweep --kernels score,diffmap
 
 Without ``--sweep`` it uses nothing but those wrappers, the problem
 generators and the timers, so it times an older checkout of the port the
@@ -25,6 +27,11 @@ P3P shapes: 2,048 lanes (a serve batch's first sampling phase, 8 x 256),
 3,840 (its second phase, 8 x 32 x 15) and 32,768 (fixed-T sampling of a
 serve batch, 8 x 256 x 16).
 
+Score shapes, P3P hypotheses against N = 1,600 pixels a frame: B=8 H=256
+(a fused-soft serve batch) and B=8 H=4,096 (the large-H regime).
+Diff-map shapes: B=8 H=256 (a score-CNN or fixed-T serve batch) and B=1
+H=256 (a test_ransac frame).
+
 Times: ``queued_ms`` (CUDA events around 20 calls queued behind a sleep
 kernel, median of 5) and ``device_ms`` (torch.profiler, the kernel's own
 time).  Prints one JSON line per regime and shape, and writes them all to
@@ -40,11 +47,15 @@ from pathlib import Path
 import torch
 
 from dsac_tpu_torch.geometry.pose import Pose
+from dsac_tpu_torch.ops.diffmap_cuda import diffmaps, soft_inlier_scores
 from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
-from dsac_tpu_torch.utils.kernel_problems import (FRAMES, HYPS, N,
-                                                  P3P_SHAPES, REFINE_REGIMES,
-                                                  STEPS, attempt_sets,
+from dsac_tpu_torch.utils.kernel_problems import (DIFFMAP_SHAPES, FRAMES,
+                                                  HYPS, N, P3P_SHAPES,
+                                                  REFINE_REGIMES,
+                                                  SCORE_SHAPES, STEPS,
+                                                  attempt_sets,
+                                                  hypothesis_pool,
                                                   make_problem, regime_poses)
 from dsac_tpu_torch.utils.timing import profiled_ms, queued_ms
 
@@ -124,6 +135,103 @@ def sweep_p3p(dev, obj, img, cam) -> dict:
             "candidates": sorted(cands, key=lambda r: r["queued_ms"])}
 
 
+def sweep_score_layouts(N: int) -> list:
+    """Every power-of-two split of 4 to 32 warps into hypotheses and warps
+    (at most 8) a hypothesis, with the whole frame staged at once and in
+    tiles of 256 pixels."""
+    from dsac_tpu_torch.ops.diffmap_cuda import SCORE_TILES, ScoreLayout
+    return [ScoreLayout(g, w, tile) for tile in SCORE_TILES
+            for g in (1, 2, 4, 8, 16, 32) for w in (1, 2, 4, 8)
+            if 4 <= g * w <= 32]
+
+
+def sweep_diffmap_layouts(N: int) -> list:
+    """Every power of two from 1 to 16 hypotheses a CTA, CTAs of 64 to 512
+    threads, 4 pixels a thread (where N % 4 == 0) and 1."""
+    from dsac_tpu_torch.ops.diffmap_cuda import DiffmapLayout
+    return [DiffmapLayout(g, threads, vec)
+            for vec in ((4, 1) if N % 4 == 0 else (1,))
+            for g in (1, 2, 4, 8, 16) for threads in (64, 128, 256, 512)]
+
+
+def sweep_score(dev, poses: Pose, coords, pix, cam) -> dict:
+    """The layout score_layout picks for this shape, and every layout of
+    the sweep timed and held against the plain version (max abs error;
+    two launches bit-identical), fastest first."""
+    from dsac_tpu_torch.ops import _build
+    from dsac_tpu_torch.ops.diffmap_cuda import (launch_score, score_layout,
+                                                 soft_inlier_scores_ref)
+    B, H = poses.t.shape[:2]
+    want = soft_inlier_scores_ref(poses.R, poses.t, coords, pix, cam)
+
+    def run(lay):
+        return launch_score(poses.R, poses.t, coords, pix, cam, layout=lay)
+
+    cands = []
+    for lay in sweep_score_layouts(N):
+        got = run(lay)
+        cands.append({"layout": list(lay),
+                      "queued_ms": queued_ms(lambda: run(lay)),
+                      "max_abs_err": float((got - want).abs().max()),
+                      "deterministic": bool(torch.equal(got, run(lay)))})
+    return {"layout": list(score_layout(B, H, N, _build.sm_count(dev))),
+            "candidates": sorted(cands, key=lambda r: r["queued_ms"])}
+
+
+def sweep_diffmap(dev, poses: Pose, coords, pix, cam) -> dict:
+    """The layout diffmap_layout picks for this shape, and every layout of
+    the sweep timed and held against the plain version: its max abs error
+    and the elements on which it and the plain version miss rtol 1e-4,
+    atol 1e-2 against the plain version in f64; fastest first."""
+    from dsac_tpu_torch.ops import _build
+    from dsac_tpu_torch.ops.diffmap_cuda import (diffmap_layout,
+                                                 diffmaps_ref,
+                                                 launch_diffmap)
+    B, H = poses.t.shape[:2]
+    args = (poses.R, poses.t, coords, pix)
+    want = diffmaps_ref(*args, cam)
+    want64 = diffmaps_ref(*(a.double() for a in args), cam)
+
+    def misses(x):
+        return int(((x.double() - want64).abs()
+                    > 1e-2 + 1e-4 * want64.abs()).sum())
+
+    cands = []
+    for lay in sweep_diffmap_layouts(N):
+        got = launch_diffmap(*args, cam, layout=lay)
+        cands.append({"layout": list(lay),
+                      "queued_ms": queued_ms(
+                          lambda: launch_diffmap(*args, cam, layout=lay)),
+                      "max_abs_err": float((got - want).abs().max()),
+                      "misses_vs_f64": misses(got)})
+    return {"layout": list(diffmap_layout(B, H, N, _build.sm_count(dev))),
+            "plain_misses_vs_f64": misses(want),
+            "candidates": sorted(cands, key=lambda r: r["queued_ms"])}
+
+
+def scoring_shapes(shapes: dict, wrapper, symbol: str, sweep, dev, gen,
+                   cam, coords, pix, args) -> list:
+    """Each shape (frames, hypotheses) of the score or diff-map kernel, on
+    a pool of P3P hypotheses: ``wrapper`` timed, and with ``--sweep`` every
+    layout (``sweep``)."""
+    rows = []
+    for name, (B, H) in shapes.items():
+        c, x = coords[:B].contiguous(), pix[:B].contiguous()
+        poses = hypothesis_pool(c, x, H, cam, gen)
+
+        def call():
+            return wrapper(poses.R, poses.t, c, x, cam)
+
+        row = {"shape": name, "B": B, "H": H, "N": N,
+               "queued_ms": queued_ms(call),
+               "device_ms": profiled_ms(call, 20, symbol)}
+        if args.sweep:
+            row.update(sweep(dev, poses, c, x, cam))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def refine_regimes(dev, gen, cam, gt, coords, pix, pool, args) -> list:
     rows = []
     for name, (B, P) in REFINE_REGIMES.items():
@@ -165,21 +273,31 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
                     help="also time (and check) every legal layout")
+    ap.add_argument("--kernels", default="refine,p3p,score,diffmap",
+                    help="comma-separated kernels to time (default: all)")
     ap.add_argument("--out", default=None, help="also write the lines here")
     args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1305)
     cam, gt, coords, pix = make_problem(FRAMES, N, dev, gen)
-    obj, img = attempt_sets(coords, pix, HYPS, gen)
-    pool = p3p_solve(obj, img, cam)[0]
-    pool = Pose(pool.R.reshape(FRAMES, HYPS, 3, 3).contiguous(),
-                pool.t.reshape(FRAMES, HYPS, 3).contiguous())
-    result = {"device": torch.cuda.get_device_name(0),
-              "refine": refine_regimes(dev, gen, cam, gt, coords, pix, pool,
-                                       args),
-              "p3p": p3p_shapes(dev, gen, cam, coords, pix, args)}
+    pool = hypothesis_pool(coords, pix, HYPS, cam, gen)
+    result = {"device": torch.cuda.get_device_name(0)}
+    if "refine" in kernels:
+        result["refine"] = refine_regimes(dev, gen, cam, gt, coords, pix,
+                                          pool, args)
+    if "p3p" in kernels:
+        result["p3p"] = p3p_shapes(dev, gen, cam, coords, pix, args)
+    if "score" in kernels:
+        result["score"] = scoring_shapes(
+            SCORE_SHAPES, soft_inlier_scores, "score_kernel", sweep_score,
+            dev, gen, cam, coords, pix, args)
+    if "diffmap" in kernels:
+        result["diffmap"] = scoring_shapes(
+            DIFFMAP_SHAPES, diffmaps, "diffmap_kernel", sweep_diffmap, dev,
+            gen, cam, coords, pix, args)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result) + "\n")

@@ -38,11 +38,12 @@ _F = ctypes.c_float
 # launcher name -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
     "dsac_p3p_solve": [_P, _P, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P],
-    "dsac_soft_inlier_scores": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-                                _F, _F, _P, _P],
+    "dsac_soft_inlier_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _F, _F, _F, _F, _F, _P, _P],
     "dsac_refine_pose": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                          _F, _F, _F, _I, _I, _I, _P, _P, _P, _P],
-    "dsac_diffmaps": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    "dsac_diffmaps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                      _F, _P, _P],
     "dsac_irls_stats": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                         _P, _P],
 }

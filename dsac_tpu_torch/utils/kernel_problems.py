@@ -1,7 +1,7 @@
 """Inputs for holding the CUDA kernels against their plain versions and
 timing them on the card, made on the device from a ``torch.Generator``,
-and the shapes the main path gives the refine and P3P kernels.  Shared by
-``chip_smoke.py`` and ``cli/profile_kernels.py``."""
+and the shapes the main path gives the refine, P3P, score and diff-map
+kernels.  Shared by ``chip_smoke.py`` and ``cli/profile_kernels.py``."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from dsac_tpu_torch.geometry.pose import Pose, invert, transform
 from dsac_tpu_torch.geometry.projection import project
 from dsac_tpu_torch.geometry.rotation import so3_exp
 from dsac_tpu_torch.ops.gn_cuda import init_probes
+from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
 from dsac_tpu_torch.ops.sampling import gather_rows
 
 # A serve batch: 8 frames of N pixels, 256 hypotheses a frame, two-phase
@@ -33,6 +34,18 @@ P3P_SHAPES = {
     "serve_phase1": HYPS,  # two-phase sampling, phase 1
     "serve_phase2": SURVIVORS * (ATTEMPTS - 1),  # its phase 2
     "fixed_t": HYPS * ATTEMPTS,  # fixed-T sampling
+}
+# The score kernel's shapes: (frames, hypotheses a frame).
+SCORE_SHAPES = {
+    "serve": (FRAMES, HYPS),  # a fused-soft serve batch
+    # the large-H regime the TPU kernel was written for
+    # (dsac_tpu/ops/diffmap_pallas.py:1-16, scripts/bench_large_h.py)
+    "large_h": (FRAMES, 4096),
+}
+# The diff-map kernel's shapes: (frames, hypotheses a frame).
+DIFFMAP_SHAPES = {
+    "serve": (FRAMES, HYPS),  # a score-CNN or fixed-T serve batch
+    "test_ransac": (1, HYPS),  # one test_ransac frame
 }
 
 
@@ -118,3 +131,13 @@ def regime_poses(name: str, gt: Pose, pool: Pose, gen: torch.Generator
     if P == HYPS:
         return Pose(pool.R[:nb].contiguous(), pool.t[:nb].contiguous())
     return near_poses(frames, P, gen)
+
+
+def hypothesis_pool(coords: torch.Tensor, pix: torch.Tensor, H: int,
+                    cam: Camera, gen: torch.Generator) -> Pose:
+    """H P3P hypotheses (B, H) of every frame, each from a random 4-point
+    set, as sampling draws them: valid and invalid lanes alike."""
+    B = coords.shape[0]
+    pool = p3p_solve(*attempt_sets(coords, pix, H, gen), cam)[0]
+    return Pose(pool.R.reshape(B, H, 3, 3).contiguous(),
+                pool.t.reshape(B, H, 3).contiguous())

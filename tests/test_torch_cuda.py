@@ -10,7 +10,9 @@ median |dR| < 1e-3; score max abs error <= 1e-3; refine |dt| <= 2 mm,
 |dR| <= 1e-4, |dn_in| <= 0.5.  The refine and P3P kernels are held at
 each of their layouts (ops/gn_cuda.py:RefineLayout, ops/p3p_cuda.py:
 P3PLayout), on ragged sizes too, and the refine layouts against each
-other at the refine bar.  As in tests/test_torch_diffmap_stats.py:
+other at the refine bar; the score and diff-map kernels in every layout
+that ``cli/profile_kernels.py --sweep`` tries, on ragged sizes, the score
+bit-identical from launch to launch.  As in tests/test_torch_diffmap_stats.py:
 diff-maps rtol 1e-4, atol 1e-2 (tests/test_pallas_kernels.py:42-53); IRLS
 statistics n_in rtol 1e-3 / atol 0.05, JtJ and Jtr rtol 2e-3 / atol 2.0
 (tests/test_gn_pallas.py:46-55); the stepwise refiner against the refine
@@ -29,7 +31,9 @@ import torch
 from dsac_tpu_torch.config import Camera
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.geometry.rotation import so3_exp
-from dsac_tpu_torch.ops.diffmap_cuda import (diffmaps, diffmaps_ref,
+from dsac_tpu_torch.ops.diffmap_cuda import (DiffmapLayout, diffmaps,
+                                             diffmaps_ref, launch_diffmap,
+                                             launch_score,
                                              soft_inlier_scores,
                                              soft_inlier_scores_ref)
 from dsac_tpu_torch.geometry.pose import pose_to_vec6
@@ -205,6 +209,80 @@ def test_diffmap_and_irls_stats_match_plain_versions(problem):
     torch.testing.assert_close(ks[2], rs[2], rtol=1e-3, atol=0.05)
     torch.testing.assert_close(ks[1], rs[1], rtol=2e-3, atol=2.0)
     torch.testing.assert_close(ks[0], rs[0], rtol=2e-3, atol=2.0)
+
+
+def _ragged(rng, dev, B, H, N):
+    """B frames of N pixels and H hypotheses around their known poses."""
+    gt, coords, pix = frames(rng, B=2, N=N)
+    pool = _pool(rng, Pose(gt.R.to(dev), gt.t.to(dev)), 0.2, 300.0, P=H)
+    return (pool.R[:B].contiguous(), pool.t[:B].contiguous(),
+            coords[:B].to(dev), pix[:B].to(dev))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("H", [1, 3, 257])
+@pytest.mark.parametrize("N", [14, 100, 1601])
+def test_score_layouts_match_plain_version(problem, B, H, N):
+    """Every layout that profile_kernels --sweep tries, at ragged sizes,
+    against the plain version (max abs error <= 1e-3); each bit-identical
+    from launch to launch."""
+    from dsac_tpu_torch.cli.profile_kernels import sweep_score_layouts
+    args = _ragged(problem[0], problem[2].device, B, H, N)
+    want = soft_inlier_scores_ref(*args, CAM)
+    for lay in sweep_score_layouts(N):
+        got = launch_score(*args, CAM, layout=lay)
+        assert float((got - want).abs().max()) <= 1e-3, lay
+        assert torch.equal(got, launch_score(*args, CAM, layout=lay)), lay
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("H", [1, 3, 257])
+@pytest.mark.parametrize("N", [14, 100, 1601])
+def test_diffmap_layouts_match_plain_version(problem, B, H, N):
+    """Every layout that profile_kernels --sweep tries, at ragged sizes
+    (float4 stores at N = 100), against the plain version (rtol 1e-4, atol
+    1e-2)."""
+    from dsac_tpu_torch.cli.profile_kernels import sweep_diffmap_layouts
+    args = _ragged(problem[0], problem[2].device, B, H, N)
+    want = diffmaps_ref(*args, CAM)
+    for lay in sweep_diffmap_layouts(N):
+        got = launch_diffmap(*args, CAM, layout=lay)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2,
+                                   msg=str(lay))
+
+
+def test_score_and_diffmap_count_one_launch_a_call(problem):
+    """The wrappers count their launches; launch_score and launch_diffmap
+    do not; a serve batch's scores are bit-identical from call to call."""
+    rng, gt, coords, pix = problem
+    pool = _pool(rng, gt, 0.2, 300.0, P=256)
+    args = (pool.R, pool.t, coords, pix)
+    before = (soft_inlier_scores.launches, diffmaps.launches)
+    a = soft_inlier_scores(*args, CAM)
+    assert torch.equal(a, soft_inlier_scores(*args, CAM))
+    diffmaps(*args, CAM)
+    launch_score(*args, CAM)
+    launch_diffmap(*args, CAM)
+    assert (soft_inlier_scores.launches, diffmaps.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+def test_diffmap_takes_unaligned_inputs_with_scalar_loads(problem):
+    """Inputs that start 4 bytes past a 16-byte boundary: the wrapper's
+    layout drops to one pixel a thread and gives the plain version's
+    result; a float4 layout given explicitly is refused."""
+    rng, gt, coords, pix = problem
+    pool = _pool(rng, gt, 0.2, 300.0, P=8)
+    c = torch.empty(coords.numel() + 1, device=coords.device)[1:]
+    c = c.view(coords.shape).copy_(coords)
+    x = torch.empty(pix.numel() + 1, device=pix.device)[1:]
+    x = x.view(pix.shape).copy_(pix)
+    torch.testing.assert_close(diffmaps(pool.R, pool.t, c, x, CAM),
+                               diffmaps_ref(pool.R, pool.t, coords, pix,
+                                            CAM), rtol=1e-4, atol=1e-2)
+    with pytest.raises(ValueError):
+        launch_diffmap(pool.R, pool.t, c, x, CAM,
+                       layout=DiffmapLayout(8, 128, 4))
 
 
 def test_stepwise_refiner_matches_refine_kernel(problem):

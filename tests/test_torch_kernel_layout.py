@@ -1,13 +1,26 @@
-"""The layout functions of the refine and P3P kernels (ops/gn_cuda.py:
-refine_layout, ops/p3p_cuda.py:p3p_layout): pure functions of their
-arguments, run here on the CPU.  Every layout they pick is one the CUDA
-kernels take (csrc/refine.cu, csrc/p3p.cu: clusters of at most 8 CTAs, at
-most 256 threads a refine CTA and 1,024 a P3P block, shared memory under
-the H100's 227 KB a block), and the main path's regimes get the layouts
-the H100 sweep chose (PERF.md)."""
+"""The layout functions of the refine, P3P, score and diff-map kernels
+(ops/gn_cuda.py:refine_layout, ops/p3p_cuda.py:p3p_layout,
+ops/diffmap_cuda.py:score_layout and diffmap_layout): pure functions of
+their arguments, run here on the CPU.  Every layout they pick is one the
+CUDA kernels take (csrc/refine.cu, csrc/p3p.cu, csrc/score.cu,
+csrc/diffmap.cu: clusters of at most 8 CTAs, at most 256 threads a refine
+CTA and 1,024 a P3P block or score or diff-map CTA, shared memory under
+the H100's 227 KB a block, float4 stores only where N % 4 == 0), the main
+path's regimes get the layouts the H100 sweep chose (PERF.md), and the
+score and diff-map grids cover every (frame, hypothesis, pixel) once."""
 
+import numpy as np
 import pytest
+import torch
 
+from dsac_tpu_torch.ops.diffmap_cuda import (MAX_THREADS, SCORE_TILES,
+                                             DiffmapLayout, ScoreLayout,
+                                             _aligned16,
+                                             check_diffmap_layout,
+                                             check_score_layout,
+                                             diffmap_grid, diffmap_layout,
+                                             diffmap_smem_bytes, score_grid,
+                                             score_layout, score_smem_bytes)
 from dsac_tpu_torch.ops.gn_cuda import (MAX_CLUSTER, REFINE_MAX_THREADS,
                                         SMEM_LIMIT_BYTES, RefineLayout,
                                         check_refine_layout, refine_layout,
@@ -99,3 +112,158 @@ def test_p3p_shapes_get_the_sweeps_layouts(M, threads_per_lane):
 def test_p3p_layout_check_refuses_what_the_kernel_does_not_take(layout):
     with pytest.raises(ValueError):
         check_p3p_layout(layout)
+
+
+# ---- the score and diff-map kernels (ops/diffmap_cuda.py; csrc/score.cu,
+# csrc/diffmap.cu: at most 1,024 threads a CTA) ----
+
+LAYOUT_NS = [1, 14, 1600, 1601, 4800, 20_000]
+LAYOUT_HS = [1, 3, 256, 4096]
+
+
+@pytest.mark.parametrize("sm_count", [132, 114, 16])
+@pytest.mark.parametrize("N", LAYOUT_NS)
+def test_score_layouts_are_legal(N, sm_count):
+    for H in LAYOUT_HS:
+        for B in (1, 8):
+            g, w, tile = lay = score_layout(B, H, N, sm_count)
+            assert 1 <= g <= H and w >= 1 and tile in SCORE_TILES
+            assert tile >= N or tile == max(SCORE_TILES)  # the whole frame
+            assert lay.threads <= MAX_THREADS == 1024
+            assert score_smem_bytes(lay) <= SMEM_LIMIT_BYTES
+            check_score_layout(lay)
+
+
+@pytest.mark.parametrize("sm_count", [132, 114, 16])
+@pytest.mark.parametrize("N", LAYOUT_NS)
+def test_diffmap_layouts_are_legal(N, sm_count):
+    for H in LAYOUT_HS:
+        for B in (1, 8):
+            g, threads, vec = lay = diffmap_layout(B, H, N, sm_count)
+            assert 1 <= g <= H
+            assert 32 <= threads <= MAX_THREADS and threads % 32 == 0
+            assert vec in (1, 4) and (vec == 1 or N % 4 == 0)
+            assert diffmap_smem_bytes(lay) <= SMEM_LIMIT_BYTES
+            check_diffmap_layout(lay, N)
+
+
+@pytest.mark.parametrize("B, H, want", [
+    (8, 256, ScoreLayout(16, 2, 2048)),  # a fused-soft serve batch
+    (8, 4096, ScoreLayout(8, 1, 2048)),  # the large-H regime
+])
+def test_score_shapes_get_the_sweeps_layouts(B, H, want):
+    assert score_layout(B, H, 1600, H100_SMS) == want
+
+
+@pytest.mark.parametrize("B, H, want", [
+    (8, 256, DiffmapLayout(8, 512, 4)),  # a score-CNN or fixed-T batch
+    (1, 256, DiffmapLayout(4, 128, 1)),  # a test_ransac frame
+])
+def test_diffmap_shapes_get_the_sweeps_layouts(B, H, want):
+    assert diffmap_layout(B, H, 1600, H100_SMS) == want
+    # one frame fills every SM
+    gx, gy, gz = diffmap_grid(want, B, H, 1600)
+    assert gx * gy * gz >= H100_SMS
+
+
+def test_score_and_diffmap_layouts_depend_only_on_their_arguments():
+    args = [(B, H, N, sm) for B in (1, 8) for H in (3, 256, 4096)
+            for N in (14, 1600) for sm in (132, 16)]
+    for fn in (score_layout, diffmap_layout):
+        first = [fn(*a) for a in args]
+        assert [fn(*a) for a in reversed(args)] == first[::-1]
+
+
+@pytest.mark.parametrize("layout", [ScoreLayout(0, 4, 1600),
+                                    ScoreLayout(4, 0, 1600),
+                                    ScoreLayout(8, 8, 1600),
+                                    ScoreLayout(1, 1, 0),
+                                    ScoreLayout(1, 1, 20_000),
+                                    ScoreLayout(1, 1, 1600),
+                                    ScoreLayout(4, 4, 512)])
+def test_score_layout_check_refuses_what_the_kernel_does_not_take(layout):
+    with pytest.raises(ValueError):
+        check_score_layout(layout)
+
+
+@pytest.mark.parametrize("layout, N", [(DiffmapLayout(8, 128, 4), 1601),
+                                       (DiffmapLayout(8, 100, 4), 1600),
+                                       (DiffmapLayout(8, 2048, 1), 1600),
+                                       (DiffmapLayout(0, 128, 1), 1600),
+                                       (DiffmapLayout(2048, 128, 1), 1600),
+                                       (DiffmapLayout(8, 128, 2), 1600)])
+def test_diffmap_layout_check_refuses_what_the_kernel_does_not_take(layout,
+                                                                    N):
+    with pytest.raises(ValueError):
+        check_diffmap_layout(layout, N)
+
+
+def score_cover(layout, B, H, N):
+    """How often the score kernel, launched on score_grid's grid, visits
+    each (frame, hypothesis, pixel) and writes each (frame, hypothesis):
+    csrc/score.cu's index arithmetic."""
+    g_, w_, tile = layout
+    pixels = np.zeros((B, H, N), np.int64)
+    writes = np.zeros((B, H), np.int64)
+    gx, gy = score_grid(layout, B, H)
+    lane = np.arange(32)
+    for b in range(gy):
+        for bx in range(gx):
+            h0 = bx * g_
+            for warp in range(g_ * w_):
+                h = h0 + warp // w_
+                if h >= H:
+                    continue
+                for n0 in range(0, N, tile):
+                    n = np.arange((warp % w_) * 32, min(tile, N - n0),
+                                  w_ * 32)[:, None] + lane
+                    n = n[n < min(tile, N - n0)]
+                    np.add.at(pixels[b, h], n0 + n, 1)
+            hh = h0 + np.arange(g_)
+            writes[b, hh[hh < H]] += 1
+    return pixels, writes
+
+
+def diffmap_cover(layout, B, H, N):
+    """How often the diff-map kernel, launched on diffmap_grid's grid,
+    writes each (frame, hypothesis, pixel): csrc/diffmap.cu's index
+    arithmetic."""
+    g_, threads, vec = layout
+    out = np.zeros((B, H, N), np.int64)
+    gx, gy, gz = diffmap_grid(layout, B, H, N)
+    for b in range(gz):
+        for by in range(gy):
+            hs = slice(by * g_, min(by * g_ + g_, H))
+            for bx in range(gx):
+                n = (bx * threads + np.arange(threads)) * vec
+                n = n[n < N]
+                for j in range(vec):
+                    out[b, hs, n + j] += 1
+    return out
+
+
+@pytest.mark.parametrize("B, H, N", [(2, 1, 14), (1, 3, 100), (2, 37, 1601),
+                                     (1, 5, 1600)])
+def test_score_grid_covers_every_pair_once(B, H, N):
+    for lay in (score_layout(B, H, N, H100_SMS), ScoreLayout(2, 4, 256),
+                ScoreLayout(4, 2, 256), ScoreLayout(32, 1, 2048),
+                ScoreLayout(1, 8, 2048), ScoreLayout(1, 4, 256)):
+        pixels, writes = score_cover(lay, B, H, N)
+        assert (pixels == 1).all() and (writes == 1).all(), lay
+
+
+@pytest.mark.parametrize("B, H, N", [(2, 1, 14), (1, 3, 100), (2, 37, 1601),
+                                     (1, 5, 1600), (2, 9, 20)])
+def test_diffmap_grid_covers_every_pair_once(B, H, N):
+    lays = [diffmap_layout(B, H, N, H100_SMS), DiffmapLayout(4, 64, 1),
+            DiffmapLayout(16, 32, 1)]
+    if N % 4 == 0:
+        lays += [DiffmapLayout(2, 64, 4), DiffmapLayout(3, 32, 4)]
+    for lay in lays:
+        check_diffmap_layout(lay, N)
+        assert (diffmap_cover(lay, B, H, N) == 1).all(), lay
+
+
+def test_float4_path_needs_16_byte_aligned_inputs():
+    x = torch.zeros(64)
+    assert _aligned16(x) and not _aligned16(x[1:])

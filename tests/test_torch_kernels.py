@@ -160,7 +160,8 @@ class TestWrappers:
     def test_build_names_the_sources(self, monkeypatch, tmp_path):
         assert [p.name for p in _build.sources()] == [
             "diffmap.cu", "irls_stats.cu", "p3p.cu", "refine.cu", "score.cu"]
-        assert [p.name for p in _build.headers()] == ["irls_stats.cuh"]
+        assert [p.name for p in _build.headers()] == ["irls_stats.cuh",
+                                                      "reproj.cuh"]
         name = _build.library_path().name
         assert name.startswith("libdsac_kernels_") and name.endswith(".so")
         assert _build.library_path() == _build.library_path()
