@@ -20,14 +20,17 @@ stopped):
                   bit-identical, and at H = 4,096, where f32 cannot meet
                   its bar in either version, it is held against the
                   plain version in f64, within a multiple of the plain
-                  f32 version's own gap), and the refine kernel at each
+                  f32 version's own gap), the IRLS-stats kernel at a
+                  test_ransac frame and a refine-all batch (`by_shape`;
+                  two launches bit-identical, and the refine kernel's
+                  n_in after one step in the same layout equal to the
+                  inlier mass bit for bit), and the refine kernel at each
                   regime of the main path (utils/kernel_problems.py:
                   REFINE_REGIMES, `regimes`), each with the layout that
-                  its layout
-                  function (ops/p3p_cuda.py:p3p_layout,
+                  its layout function (ops/p3p_cuda.py:p3p_layout,
                   ops/diffmap_cuda.py:score_layout and diffmap_layout,
-                  ops/gn_cuda.py:refine_layout) picks for it, its times and
-                  its bound;
+                  ops/gn_cuda.py:refine_layout and irls_stats_layout)
+                  picks for it, its times and its bound;
                   `ms` and `plain_ms` are medians of 20 CUDA-event timings
                   (of 10 back-to-back kernel calls, of 1 plain call; the
                   plain refinement of 8 x 256 poses is timed once),
@@ -241,7 +244,8 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
                                                  score_smem_bytes,
                                                  soft_inlier_scores,
                                                  soft_inlier_scores_ref)
-    from dsac_tpu_torch.ops.gn_cuda import (irls_stats, irls_stats_ref,
+    from dsac_tpu_torch.ops.gn_cuda import (irls_stats, irls_stats_layout,
+                                            irls_stats_ref, launch_refine,
                                             refine_layout,
                                             refine_pose_fused,
                                             refine_pose_fused_ref,
@@ -250,6 +254,8 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
     from dsac_tpu_torch.ops.p3p_cuda import (p3p_layout, p3p_solve,
                                              p3p_solve_ref)
     from dsac_tpu_torch.utils.kernel_problems import (DIFFMAP_SHAPES,
+                                                      IRLS_BARS,
+                                                      IRLS_STATS_SHAPES,
                                                       P3P_SHAPES,
                                                       REFINE_REGIMES,
                                                       SCORE_SHAPES,
@@ -449,9 +455,10 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
                  "library_ms": None, "regimes": regimes})
 
     # ---- diffmap at each shape of DIFFMAP_SHAPES, in the layout
-    # diffmap_layout picks, and irls_stats at B x H poses x N pixels: at
-    # the bars of the reference's kernel tests on the inputs those tests
-    # draw, and on the phase-1 pool of the serve path ----
+    # diffmap_layout picks (and below, irls_stats at each shape of
+    # IRLS_STATS_SHAPES): at the bars of the reference's kernel tests on
+    # the inputs those tests draw, and on the phase-1 pool of the serve
+    # path ----
     Rr, tr, cr, pr = reference_problem(B, H, N, dev, gen)
 
     # On the pool a few elements are out of f32's reach in either version:
@@ -523,61 +530,106 @@ def check_kernels(dev) -> tuple[list[dict], list[str], dict]:
                                         "bound_ms", "bound_by")},
                  "library_ms": None, "by_shape": dm_shapes})
 
-    def stats():
-        return irls_stats(R, t, coords, pix, cam)
+    # ---- irls_stats at each shape of IRLS_STATS_SHAPES, in the layout
+    # irls_stats_layout picks: at the bars of the reference's kernel tests
+    # on the inputs those tests draw, and on the phase-1 pool of the serve
+    # path against the plain version in f64 (as the diff-map); two launches
+    # bit-identical; and the refine kernel's n_in after one step in the
+    # same layout equal to the pass's inlier mass bit for bit.  The row's
+    # times and bound are the refine-all batch's (B x H) ----
+    st_shapes = []
+    for shape, (nb, nh) in IRLS_STATS_SHAPES.items():
+        problems = {"reference": tuple(a[:nb, :nh].contiguous()
+                                       for a in (Rr, tr)) + (cr[:nb], pr[:nb]),
+                    "pool": tuple(a[:nb, :nh].contiguous() for a in (R, t))
+                    + (coords[:nb], pix[:nb])}
+        layout = irls_stats_layout(nb * nh, nh, N, sms)
+        gaps = {}
+        for name, args in problems.items():
+            ks = unpack_stats(irls_stats(*args, cam))
+            rs = unpack_stats(irls_stats_ref(*args, cam))
+            if not all(bool(torch.isfinite(v).all()) for v in ks):
+                failures.append(f"irls_stats ({shape}): non-finite output "
+                                f"({name})")
+            if name == "pool":
+                r64 = unpack_stats(irls_stats_ref(
+                    *(a.double() for a in args), cam))
+                part32 = {p: unpack_stats(stats_f64_with_f32(args, cam, p))
+                          for p in ("r", "J")}
+            for i, (q, rtol, atol) in enumerate(IRLS_BARS):
+                gaps[f"{name}_{q}"] = float((ks[i] - rs[i]).abs().max())
+                if name == "reference":
+                    ex = excess(ks[i], rs[i], rtol, atol)
+                    if not ex <= 0.0:
+                        failures.append(f"irls_stats ({shape}): {q} exceeds "
+                                        f"atol {atol} + rtol {rtol} by {ex}")
+                else:
+                    mk = missed(ks[i], r64[i], rtol, atol)
+                    mp = missed(rs[i], r64[i], rtol, atol)
+                    n_k, n_p = int(mk.sum()), int(mp.sum())
+                    # which f32 intermediate puts the missed elements out
+                    # of reach: each count is (misses, of them also the
+                    # kernel's)
+                    cause = {}
+                    for p, label in (("r", "f32_residual"),
+                                     ("J", "f32_jacobian")):
+                        mv = missed(part32[p][i], r64[i], rtol, atol)
+                        cause[label] = [int(mv.sum()), int((mv & mk).sum())]
+                    gaps[f"pool_{q}_misses"] = {
+                        "kernel": n_k, "plain": n_p,
+                        "both": int((mk & mp).sum()), **cause}
+                    if not n_k <= n_p + MISS_SLACK:
+                        failures.append(f"irls_stats ({shape}, pool): {q}: "
+                                        f"{n_k} elements miss the bar "
+                                        "against f64, the plain version "
+                                        f"{n_p}")
+        # the pool's pass twice, and one refine step in the same layout
+        args = problems["pool"]
+        kstats = irls_stats(*args, cam)
+        same = bool(torch.equal(kstats, irls_stats(*args, cam)))
+        _, n_one = launch_refine(*args, cam, 1, 10.0, 1.0, 50.0, 1e-4, 100.0,
+                                 layout=layout)
+        step_same = bool(torch.equal(n_one, kstats[..., 27]))
+        if not (same and step_same):
+            failures.append(f"irls_stats ({shape}): two launches "
+                            f"bit-identical {same}; refine's n_in after one "
+                            f"step in layout {tuple(layout)} equal to the "
+                            f"inlier mass bit for bit {step_same}")
 
-    gaps = {}
-    for name, args in (("reference", (Rr, tr, cr, pr)),
-                       ("pool", (R, t, coords, pix))):
-        ks = unpack_stats(irls_stats(*args, cam))
-        rs = unpack_stats(irls_stats_ref(*args, cam))
-        if name == "pool":
-            r64 = unpack_stats(irls_stats_ref(*(a.double() for a in args),
-                                              cam))
-            part32 = {p: unpack_stats(stats_f64_with_f32(args, cam, p))
-                      for p in ("r", "J")}
-        for i, (q, rtol, atol) in enumerate((("JtJ", 2e-3, 2.0),
-                                             ("Jtr", 2e-3, 2.0),
-                                             ("n_in", 1e-3, 0.05))):
-            gaps[f"{name}_{q}"] = float((ks[i] - rs[i]).abs().max())
-            if name == "reference":
-                ex = excess(ks[i], rs[i], rtol, atol)
-                if not ex <= 0.0:
-                    failures.append(f"irls_stats: {q} exceeds atol {atol} "
-                                    f"+ rtol {rtol} by {ex}")
-            else:
-                mk = missed(ks[i], r64[i], rtol, atol)
-                mp = missed(rs[i], r64[i], rtol, atol)
-                n_k, n_p = int(mk.sum()), int(mp.sum())
-                # which f32 intermediate puts the missed elements out of
-                # reach: each count is (misses, of them also the kernel's)
-                cause = {}
-                for p, label in (("r", "f32_residual"), ("J", "f32_jacobian")):
-                    mv = missed(part32[p][i], r64[i], rtol, atol)
-                    cause[label] = [int(mv.sum()), int((mv & mk).sum())]
-                gaps[f"pool_{q}_misses"] = {
-                    "kernel": n_k, "plain": n_p,
-                    "both": int((mk & mp).sum()), **cause}
-                if not n_k <= n_p + MISS_SLACK:
-                    failures.append(f"irls_stats (pool): {q}: {n_k} "
-                                    "elements miss the bar against f64, "
-                                    f"the plain version {n_p}")
-    b_ms, b_by = bound_ms(B * H * 12 * 4 + B * N * 5 * 4 + B * H * 28 * 4,
-                          B * H * N * IRLS_OPS_PER_PIXEL)
+        def stats():
+            return irls_stats(*args, cam)
+
+        b_ms, b_by = bound_ms(
+            nb * nh * 12 * 4 + nb * N * 5 * 4 + nb * nh * 28 * 4,
+            nb * nh * N * IRLS_OPS_PER_PIXEL)
+        st_shapes.append({
+            "shape": shape, "shapes": f"B={nb} P={nh} N={N}",
+            "layout": list(layout),
+            "refine_layout_coincides": layout == refine_layout(
+                nb * nh, nh, N, sms),
+            **gaps, "bit_identical_relaunch": same,
+            "refine_step_n_in_identical": step_same,
+            "ms": events_ms(stats, 10, SAMPLES),
+            "device_ms": profiled_ms(stats, 20, "irls_stats_kernel"),
+            "plain_ms": events_ms(lambda: irls_stats_ref(*args, cam), 1,
+                                  SAMPLES),
+            "bound_ms": b_ms, "bound_by": b_by})
+    top = next(x for x in st_shapes if x["shape"] == "refine_all")
     rows.append({"name": "irls_stats", "route": "cuda",
                  "source": "dsac_tpu_torch/csrc/irls_stats.cu",
                  "replaces": "dsac_tpu/ops/gn_pallas.py:45",
-                 "max_abs_err": gaps["reference_n_in"], **gaps,
+                 "max_abs_err": max(x["reference_n_in"] for x in st_shapes),
                  "bar": "n_in rtol 1e-3 atol 0.05; JtJ, Jtr rtol 2e-3 "
                         "atol 2.0 on the reference problem; on the pool, "
                         "misses against f64 <= the plain version's + "
-                        f"{MISS_SLACK}",
-                 "shapes": f"B={B} P={H} N={N}",
-                 "ms": events_ms(stats, 10, SAMPLES),
-                 "device_ms": profiled_ms(stats, 20, "irls_stats_kernel"),
-                 "plain_ms": events_ms(lambda: irls_stats_ref(
-                     R, t, coords, pix, cam), 1, SAMPLES),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                        f"{MISS_SLACK}; finite; two launches bit-identical; "
+                        "refine's n_in after one step in the same layout "
+                        "bit-identical to the inlier mass; at every shape",
+                 "shapes": top["shapes"] + " (refine-all); by_shape lists "
+                           "every one",
+                 **{k: top[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+                 "library_ms": None, "by_shape": st_shapes})
 
     # ---- stepwise refiner vs refine kernel at the refine-all shape ----
     pool = Pose(R, t)

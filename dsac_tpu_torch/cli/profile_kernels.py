@@ -1,14 +1,16 @@
-"""Device time of the refine, P3P, score and diff-map kernels at every
-shape the main path gives them (utils/kernel_problems.py: REFINE_REGIMES,
-P3P_SHAPES, SCORE_SHAPES, DIFFMAP_SHAPES), through the wrappers the main
-path calls (``refine_pose_fused``, ``p3p_solve``, ``soft_inlier_scores``,
-``diffmaps``), so in the layouts that ``ops/gn_cuda.py:refine_layout``,
+"""Device time of the refine, P3P, score, diff-map and IRLS-stats kernels
+at every shape the main path gives them (utils/kernel_problems.py:
+REFINE_REGIMES, P3P_SHAPES, SCORE_SHAPES, DIFFMAP_SHAPES,
+IRLS_STATS_SHAPES), through the wrappers the main path calls
+(``refine_pose_fused``, ``p3p_solve``, ``soft_inlier_scores``,
+``diffmaps``, ``irls_stats``), so in the layouts that
+``ops/gn_cuda.py:refine_layout`` / ``irls_stats_layout``,
 ``ops/p3p_cuda.py:p3p_layout`` and ``ops/diffmap_cuda.py:score_layout`` /
 ``diffmap_layout`` choose; with ``--sweep``, in every legal layout too,
 each held against the plain version.
 
     python -m dsac_tpu_torch.cli.profile_kernels
-    python -m dsac_tpu_torch.cli.profile_kernels --sweep --kernels score,diffmap
+    python -m dsac_tpu_torch.cli.profile_kernels --sweep --kernels irls_stats
 
 Without ``--sweep`` it uses nothing but those wrappers, the problem
 generators and the timers, so it times an older checkout of the port the
@@ -30,7 +32,13 @@ serve batch, 8 x 256 x 16).
 Score shapes, P3P hypotheses against N = 1,600 pixels a frame: B=8 H=256
 (a fused-soft serve batch) and B=8 H=4,096 (the large-H regime).
 Diff-map shapes: B=8 H=256 (a score-CNN or fixed-T serve batch) and B=1
-H=256 (a test_ransac frame).
+H=256 (a test_ransac frame).  IRLS-stats shapes, P3P hypotheses against
+N = 1,600 pixels a frame: B=1 P=256 (a pass of the stepwise refiner,
+which test_ransac --check-refine runs 16 times a frame; its row also
+times that refiner, 16 passes and their PyTorch solves, as
+``stepwise_refiner_ms``: host-bound, and slowed by an earlier
+torch.profiler session in the process, so it is comparable between runs
+of ``--kernels irls_stats`` alone) and B=8 P=256.
 
 Times: ``queued_ms`` (CUDA events around 20 calls queued behind a sleep
 kernel, median of 5) and ``device_ms`` (torch.profiler, the kernel's own
@@ -48,16 +56,19 @@ import torch
 
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.ops.diffmap_cuda import diffmaps, soft_inlier_scores
-from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused
+from dsac_tpu_torch.ops.gn_cuda import (irls_stats, refine_pose_fused,
+                                        refine_pose_fused_steps)
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
 from dsac_tpu_torch.utils.kernel_problems import (DIFFMAP_SHAPES, FRAMES,
-                                                  HYPS, N, P3P_SHAPES,
+                                                  HYPS, IRLS_BARS,
+                                                  IRLS_STATS_SHAPES, N,
+                                                  P3P_SHAPES,
                                                   REFINE_REGIMES,
                                                   SCORE_SHAPES, STEPS,
                                                   attempt_sets,
                                                   hypothesis_pool,
                                                   make_problem, regime_poses)
-from dsac_tpu_torch.utils.timing import profiled_ms, queued_ms
+from dsac_tpu_torch.utils.timing import events_ms, profiled_ms, queued_ms
 
 # refine_pose_fused's defaults (the serve config), for launch_refine
 REFINE_KW = dict(threshold=10.0, beta=1.0, min_inliers=50.0, damping=1e-4,
@@ -209,6 +220,85 @@ def sweep_diffmap(dev, poses: Pose, coords, pix, cam) -> dict:
             "candidates": sorted(cands, key=lambda r: r["queued_ms"])}
 
 
+def sweep_irls_stats(dev, poses: Pose, coords, pix, cam) -> dict:
+    """The layout irls_stats_layout picks for this shape, and every legal
+    layout of the refine sweep timed and held against the plain version:
+    per part its max abs error and the elements on which it and the plain
+    version miss the part's bar against the plain version in f64; two
+    launches bit-identical; and the refine kernel's n_in after one step in
+    the same layout equal to the pass's inlier mass bit for bit; fastest
+    first."""
+    from dsac_tpu_torch.ops import _build
+    from dsac_tpu_torch.ops.gn_cuda import (check_irls_stats_layout,
+                                            irls_stats_layout, irls_stats_ref,
+                                            launch_irls_stats, launch_refine,
+                                            unpack_stats)
+    B, P = poses.t.shape[:2]
+    args = (poses.R, poses.t, coords, pix)
+    want = unpack_stats(irls_stats_ref(*args, cam))
+    want64 = unpack_stats(irls_stats_ref(*(a.double() for a in args), cam))
+
+    def compare(stats) -> dict:
+        got = unpack_stats(stats)
+        out = {}
+        for (q, rtol, atol), g, w, w64 in zip(IRLS_BARS, got, want, want64):
+            out[f"{q}_max_abs_err"] = float((g - w).abs().max())
+            out[f"{q}_misses_vs_f64"] = int(
+                ((g.double() - w64).abs() > atol + rtol * w64.abs()).sum())
+        return out
+
+    def run(lay):
+        return launch_irls_stats(*args, cam, layout=lay)
+
+    cands = []
+    for lay in sweep_refine_layouts():
+        try:
+            check_irls_stats_layout(lay, N)
+        except ValueError:
+            continue
+        got = run(lay)
+        _, n_one = launch_refine(*args, cam, 1, layout=lay, **REFINE_KW)
+        cands.append({"layout": list(lay),
+                      "queued_ms": queued_ms(lambda: run(lay)),
+                      **compare(got),
+                      "bit_identical_relaunch": bool(torch.equal(
+                          got, run(lay))),
+                      "refine_step_n_in_identical": bool(torch.equal(
+                          n_one, got[..., 27]))})
+    plain = compare(irls_stats_ref(*args, cam))
+    return {"layout": list(irls_stats_layout(B * P, P, N,
+                                             _build.sm_count(dev))),
+            "plain_misses_vs_f64": {k: v for k, v in plain.items()
+                                    if "misses" in k},
+            "candidates": sorted(cands, key=lambda r: r["queued_ms"])}
+
+
+def irls_stats_shapes(dev, gen, cam, coords, pix, pool, args) -> list:
+    """Each shape (frames, poses a frame) of the IRLS-stats kernel, on the
+    first frames of the P3P pool: ``irls_stats`` timed, at one frame the
+    stepwise refiner too, and with ``--sweep`` every layout."""
+    rows = []
+    for name, (B, P) in IRLS_STATS_SHAPES.items():
+        poses = Pose(pool.R[:B, :P].contiguous(), pool.t[:B, :P].contiguous())
+        c, x = coords[:B].contiguous(), pix[:B].contiguous()
+
+        def call():
+            return irls_stats(poses.R, poses.t, c, x, cam)
+
+        row = {"shape": name, "B": B, "P": P, "N": N}
+        if B == 1:  # host-bound: timed before the profiler runs here
+            row["stepwise_refiner_ms"] = events_ms(
+                lambda: refine_pose_fused_steps(poses, c, x, cam,
+                                                steps=STEPS), 1, 10)
+        row.update(queued_ms=queued_ms(call),
+                   device_ms=profiled_ms(call, 20, "irls_stats_kernel"))
+        if args.sweep:
+            row.update(sweep_irls_stats(dev, poses, c, x, cam))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def scoring_shapes(shapes: dict, wrapper, symbol: str, sweep, dev, gen,
                    cam, coords, pix, args) -> list:
     """Each shape (frames, hypotheses) of the score or diff-map kernel, on
@@ -273,7 +363,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
                     help="also time (and check) every legal layout")
-    ap.add_argument("--kernels", default="refine,p3p,score,diffmap",
+    ap.add_argument("--kernels",
+                    default="refine,p3p,score,diffmap,irls_stats",
                     help="comma-separated kernels to time (default: all)")
     ap.add_argument("--out", default=None, help="also write the lines here")
     args = ap.parse_args(argv)
@@ -298,6 +389,9 @@ def main(argv=None) -> dict:
         result["diffmap"] = scoring_shapes(
             DIFFMAP_SHAPES, diffmaps, "diffmap_kernel", sweep_diffmap, dev,
             gen, cam, coords, pix, args)
+    if "irls_stats" in kernels:
+        result["irls_stats"] = irls_stats_shapes(dev, gen, cam, coords, pix,
+                                                 pool, args)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result) + "\n")

@@ -19,8 +19,9 @@ step) and reports, over the frames, the largest gap to the single-launch
 refine kernel at the served hypothesis.
 
 Prints one JSON line: the reference's summary (accuracy at 5 cm / 5 deg,
-median errors, mean and spread of the expected loss and of the entropy)
-and each kernel's launch count.
+median errors, mean and spread of the expected loss and of the entropy),
+each kernel's launch count, and the seconds the frames took (rendering
+included, the model's loading not).
 
     python -m dsac_tpu_torch.cli.test_ransac --synthetic 64 --fused-refine
 """
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -110,6 +112,7 @@ def main(argv=None) -> dict:
         return gather_dense_coords(net(imgs), pix, stride=8)
 
     rots, trans, exps, ents, winners, checks = [], [], [], [], [], []
+    t0 = time.perf_counter()
     with torch.no_grad():
         for i in range(args.synthetic):
             gt = Pose(scene.bench_poses.R[i:i + 1],
@@ -132,6 +135,7 @@ def main(argv=None) -> dict:
             if args.check_refine:
                 checks.append(check_refine(res, cam, p))
 
+    seconds = time.perf_counter() - t0  # each frame ends in a host read
     stats = summarize(np.asarray(rots), np.asarray(trans), np.asarray(exps),
                       np.asarray(ents))
     result = {
@@ -144,6 +148,7 @@ def main(argv=None) -> dict:
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "launches": {name: fn.launches for name, fn in KERNELS.items()},
+        "seconds": seconds,
     }
     if args.check_refine:
         result["refine_check"] = {

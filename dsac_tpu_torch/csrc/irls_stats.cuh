@@ -1,9 +1,9 @@
 // The IRLS statistics of one pose at one pixel, and the warp reduction of
 // the 28 sums, shared by refine.cu (the whole refinement in one launch)
 // and irls_stats.cu (one pass per launch), so that the two kernels cannot
-// drift apart in what they sum.  They reduce in different layouts, so a
-// pass of irls_stats.cu matches a step of refine.cu to rounding, not bit
-// for bit.
+// drift apart in what they sum.  Both also share their layouts and the
+// order of their sums (pose_layout.cuh), so in one layout a pass of
+// irls_stats.cu is a step's sums of refine.cu bit for bit.
 //
 // Per pixel (dsac_tpu/ops/gn_pallas.py:_irls_stats_kernel): the rigid
 // transform, the 1 mm z-floor, the residual of the x-flipped projection,

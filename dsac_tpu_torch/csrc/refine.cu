@@ -20,51 +20,43 @@
 // grids of serving (32 poses) and SoftAM training (1 pose, and 12 probes
 // in the backward) the latency of a step's dependent chain, since one
 // pose's 1,600 pixels are little work.  The layout (ops/gn_cuda.py:
-// refine_layout) is one of two:
+// refine_layout) is one of two (pose_layout.cuh, which this kernel shares
+// with irls_stats.cu, so that a step's sums are a pass of that kernel):
 //
 // * a cluster of C CTAs per pose (C in 2..8, one pose per CTA): the
 //   frame's pixels are split into C slices, each CTA sums its slice and
-//   stores the sums into every CTA of the cluster through distributed
-//   shared memory (st.async, counted on an mbarrier), and every CTA adds
-//   the C partial sums in rank order 0..C-1, so every CTA solves the same
-//   system on the same sums and holds the same pose: no broadcast, and
-//   the sticky freeze agrees across the cluster;
+//   every CTA adds the C partial sums, traded through distributed shared
+//   memory, in rank order, so every CTA solves the same system on the
+//   same sums and holds the same pose: no broadcast, and the sticky freeze
+//   agrees across the cluster;
 // * G poses of one frame per CTA (C = 1), W warps each: the frame's
 //   pixels are staged in shared memory once and read by all G poses on
-//   all steps; the W warps of a pose meet at a named barrier of their
-//   own (none when W = 1), so the poses of a CTA never wait on each other.
+//   all steps.
 //
-// In both, each CTA stages its slice of the pixels in shared memory
-// (structure of arrays, conflict-free), every thread keeps the 28 sums of
-// its pixels in registers, a transposed warp butterfly leaves statistic k
-// on lane k (31 shuffles), and the partials of the warps (and CTAs) meet
-// through double-buffered slots indexed by the step's parity, so one
-// barrier (or one mbarrier wait) a step suffices.  Every warp of a pose
-// then solves redundantly and lane-parallel: lane i builds row i of the
-// scaled system, the Cholesky factor goes column by column (column j's
-// entries on lanes j..5, each with the k order of the one-thread loop, 6
-// dependent stages) with the forward substitution folded in, and the back
-// substitution and Rodrigues run on every lane.  The pose stays in
+// In both, the sums of a step go in a fixed order (each thread's pixels,
+// a transposed warp butterfly, the pose's warps, the cluster's CTAs)
+// through slots double-buffered by the step's parity, so one barrier (or
+// one mbarrier wait) a step suffices.  Every warp of a pose then solves
+// redundantly and lane-parallel: lane i builds row i of the scaled
+// system, the Cholesky factor goes column by column (column j's entries
+// on lanes j..5, each with the k order of the one-thread loop, 6
+// dependent stages) with the forward substitution folded in, and the
+// back substitution and Rodrigues run on every lane.  The pose stays in
 // registers; the warps of a pose compute it from the same sums in the
 // same order, so they agree bit for bit.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "irls_stats.cuh"
-
-namespace cg = cooperative_groups;
+#include "pose_layout.cuh"
 
 namespace {
 
 using dsac_irls::kFullMask;
+using dsac_irls::kMaxThreads;
 using dsac_irls::kStats;
 using dsac_irls::tri;
-
-constexpr int kMaxThreads = 256;
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxCluster = 8;  // the portable cluster size
 
 struct RefineArgs {
   const float* R0;
@@ -77,7 +69,7 @@ struct RefineArgs {
   int P, N, steps;
   float f, cx, cy, max_err, tau, inv_beta, min_inliers, damping;
   int cluster, poses_per_cta, warps_per_pose;
-  int slice;  // pixels per CTA: ceil(N / cluster)
+  int slice;  // pixels per CTA: ceil(N / cluster), set at launch
 };
 
 __device__ __forceinline__ float pick6(int i, const float (&a)[6]) {
@@ -85,74 +77,6 @@ __device__ __forceinline__ float pick6(int i, const float (&a)[6]) {
 #pragma unroll
   for (int k = 1; k < 6; ++k) r = i == k ? a[k] : r;
   return r;
-}
-
-// load(0) + load(1) + ... + load(n - 1), n <= kMax, left to right, with
-// every load issued before the first add (a loop of n iterations would
-// wait out each load, shared or distributed, in turn).
-template <int kMax, typename Load>
-__device__ __forceinline__ float sum_in_order(int n, Load load) {
-  float v[kMax];
-#pragma unroll
-  for (int r = 0; r < kMax; ++r) v[r] = r < n ? load(r) : 0.0f;
-  float s = v[0];
-#pragma unroll
-  for (int r = 1; r < kMax; ++r)
-    if (r < n) s += v[r];
-  return s;
-}
-
-// The cluster exchange: each CTA stores its 32 sums (st.async) into its
-// own slot in every CTA of the cluster, itself included, and each store
-// counts its bytes on the receiving CTA's mbarrier for that step's
-// parity; a CTA reads the slots once its mbarrier has all C x 128 bytes.
-// A one-way store per CTA pair instead of a cluster barrier and C remote
-// loads: 680 cycles a step instead of 2,140 on the H100 (PERF.md).
-// The slots and mbarriers are double-buffered by step parity: a CTA can
-// send step k + 2's sums only after it has every CTA's step k + 1 sums,
-// which each CTA sends after reading its step k slots.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-__device__ __forceinline__ void mbarrier_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar));
-}
-__device__ __forceinline__ void expect_bytes(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void send(unsigned remote_slot, float v,
-                                     unsigned remote_bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];" ::"r"(remote_slot), "r"(__float_as_uint(v)), "r"(remote_bar)
-      : "memory");
-}
-// Waits for the phase of parity `parity` of the local mbarrier `bar`; a
-// partner that never sends traps the launch rather than hang the card.
-__device__ __forceinline__ void wait_phase(unsigned bar, unsigned parity) {
-  for (unsigned polls = 0;; ++polls) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred q;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 q, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, q;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// Barrier of the `threads` threads of pose group g (ids 1..; 0 is
-// __syncthreads').
-__device__ __forceinline__ void group_sync(int g, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(threads) : "memory");
 }
 
 // One IRLS step's solve and pose update from the statistics (lane k of the
@@ -257,102 +181,42 @@ __device__ __forceinline__ void solve_and_update(float s, int lane,
 
 __global__ void __launch_bounds__(kMaxThreads, 2)
     refine_kernel(const RefineArgs a) {
-  extern __shared__ float pixels[];  // x, y, z, u, v of the CTA's slice
-  __shared__ float part[2][kMaxWarps][32];  // warp sums, by step parity
-  __shared__ float slots[2][kMaxCluster][32];  // the cluster's CTA sums
-  __shared__ alignas(8) unsigned long long arrived[2];  // their mbarriers
+  extern __shared__ float4 staged[];  // x, y, z, u, v of the CTA's slice
+  __shared__ dsac_irls::PoseSums sums;
 
-  const int C = a.cluster, G = a.poses_per_cta, W = a.warps_per_pose;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = warp / W, w = warp % W;
-  const int rank = blockIdx.x % C;  // the CTA's rank in its cluster
-  const int unit = blockIdx.x / C;  // the cluster: G poses of one frame
-  const int groups = (a.P + G - 1) / G;
-  const int b = unit / groups;
-  const int j = (unit % groups) * G + g;
-
-  // stage this CTA's slice of frame b's pixels
-  const int start = rank * a.slice;
-  const int len = max(0, min(a.slice, a.N - start));
-  float* sx = pixels;
-  float* sy = sx + a.slice;
-  float* sz = sy + a.slice;
-  float* su = sz + a.slice;
-  float* sv = su + a.slice;
-  const float* cb = a.coords + 3 * (static_cast<long long>(b) * a.N + start);
-  const float* pb = a.pix + 2 * (static_cast<long long>(b) * a.N + start);
-  for (int n = tid; n < len; n += blockDim.x) {
-    sx[n] = cb[3 * n];
-    sy[n] = cb[3 * n + 1];
-    sz[n] = cb[3 * n + 2];
-    su[n] = pb[2 * n];
-    sv[n] = pb[2 * n + 1];
-  }
-  __syncthreads();
-  if (j >= a.P) return;  // a pose group past the frame's last pose
-
-  const long long pid = static_cast<long long>(b) * a.P + j;
+  const dsac_irls::Place p =
+      dsac_irls::locate(a.cluster, a.poses_per_cta, a.warps_per_pose, a.P,
+                        a.N, a.slice);
+  // the pose's loads first, so that their latency hides behind staging
+  const bool live = p.j < a.P;  // not a pose group past the last pose
+  const long long pid = static_cast<long long>(p.b) * a.P + p.j;
   float R[9], t[3];
+  if (live) {
 #pragma unroll
-  for (int k = 0; k < 9; ++k) R[k] = a.R0[9 * pid + k];
+    for (int k = 0; k < 9; ++k) R[k] = a.R0[9 * pid + k];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) t[k] = a.t0[3 * pid + k];
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned bar0 = smem_addr(&arrived[0]);
-  if (C > 1) {  // the mbarriers, initialised before any CTA sends
-    if (tid == 0) {
-      mbarrier_init(bar0);
-      mbarrier_init(bar0 + 8);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-    cluster.sync();
+    for (int k = 0; k < 3; ++k) t[k] = a.t0[3 * pid + k];
   }
-  const int gthreads = W * 32;
+  float* pixels = reinterpret_cast<float*>(staged);
+  dsac_irls::stage_slice(a.coords, a.pix, a.N, p, pixels);
+  __syncthreads();
+  if (!live) return;
+
+  dsac_irls::init_exchange(sums, p);
   bool alive = true;
   float n_in = 0.0f;
   for (int step = 0; step < a.steps; ++step) {
-    const int p = step & 1;
     float acc[kStats];
-#pragma unroll
-    for (int k = 0; k < kStats; ++k) acc[k] = 0.0f;
-    auto load = [&](int n, float& x, float& y, float& z, float& u,
-                    float& v) {
-      x = sx[n];
-      y = sy[n];
-      z = sz[n];
-      u = su[n];
-      v = sv[n];
-    };
-    dsac_irls::add_pixels(R, t, w * 32 + lane, gthreads, len, load, a.f,
-                          a.cx, a.cy, a.max_err, a.tau, a.inv_beta, acc);
-    float s = dsac_irls::warp_sum_transposed(acc, lane);
-    if (W > 1) {  // the pose's warps in this CTA, in warp order
-      part[p][warp][lane] = s;
-      group_sync(g, gthreads);
-      s = sum_in_order<kMaxWarps>(W, [&](int q) {
-        return part[p][g * W + q][lane];
-      });
-    }
-    if (C > 1) {  // the cluster's CTAs, in rank order
-      const unsigned bar = bar0 + 8 * p;
-      if (w == 0) {  // this CTA's sums into slot `rank` of every CTA
-        if (lane == 0) expect_bytes(bar, C * 32 * sizeof(float));
-        const unsigned slot = smem_addr(&slots[p][rank][lane]);
-        for (int r = 0; r < C; ++r)
-          send(map_rank(slot, r), s, map_rank(bar, r));
-      }
-      wait_phase(bar, (step >> 1) & 1);
-      s = sum_in_order<kMaxCluster>(C, [&](int r) {
-        return slots[p][r][lane];
-      });
-    }
+    dsac_irls::sum_pixels(R, t, dsac_irls::StagedPixels{pixels, p.slice},
+                          p, a.f, a.cx, a.cy, a.max_err, a.tau, a.inv_beta,
+                          acc);
+    const float s = dsac_irls::pose_sum(acc, p, step, sums);
     n_in = __shfl_sync(kFullMask, s, 27);
     alive = alive && (n_in >= a.min_inliers);
-    solve_and_update(s, lane, alive, a.damping, R, t);
+    solve_and_update(s, p.lane, alive, a.damping, R, t);
   }
 
-  if (rank == 0 && w == 0 && lane == 0) {
+  if (p.rank == 0 && p.w == 0 && p.lane == 0) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) a.R_out[9 * pid + k] = R[k];
 #pragma unroll
@@ -368,9 +232,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 
 // Launches the refinement of B x P poses in the layout (cluster,
 // poses_per_cta, warps_per_pose) that ops/gn_cuda.py:refine_layout
-// chooses.  Returns a CUDA error code: cudaErrorInvalidValue for a layout
-// the kernel does not take, or whatever the launch reports (a cluster the
-// card cannot schedule is an error, never a smaller cluster).
+// chooses (pose_layout.cuh:launch_in_layout).  Returns a CUDA error code.
 extern "C" int dsac_refine_pose(const float* R0, const float* t0,
                                 const float* coords, const float* pix, int B,
                                 int P, int N, int steps, float f, float cx,
@@ -381,35 +243,9 @@ extern "C" int dsac_refine_pose(const float* R0, const float* t0,
                                 float* R, float* t, float* n_in,
                                 cudaStream_t stream) {
   if (B * P <= 0) return 0;
-  const int C = cluster, G = poses_per_cta, W = warps_per_pose;
-  const bool legal = (C == 1 || C == 2 || C == 4 || C == kMaxCluster) &&
-                     G >= 1 && W >= 1 && G * W <= kMaxWarps &&
-                     (C == 1 || G == 1) && N >= 0 && steps >= 0;
-  if (!legal) return static_cast<int>(cudaErrorInvalidValue);
-  const int slice = (N + C - 1) / C;
-  const size_t smem = sizeof(float) * 5 * static_cast<size_t>(slice);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (steps < 0) return static_cast<int>(cudaErrorInvalidValue);
   const RefineArgs args{R0, t0, coords, pix, R, t, n_in, P, N, steps, f, cx,
-                        cy, max_err, tau, inv_beta, min_inliers, damping, C,
-                        G, W, slice};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(B * ((P + G - 1) / G) * C));
-  cfg.blockDim = dim3(static_cast<unsigned>(G * W * 32));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(C);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, refine_kernel, args);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+                        cy, max_err, tau, inv_beta, min_inliers, damping,
+                        cluster, poses_per_cta, warps_per_pose, 0};
+  return dsac_irls::launch_in_layout(refine_kernel, args, B, true, stream);
 }

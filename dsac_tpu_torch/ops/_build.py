@@ -45,7 +45,7 @@ SIGNATURES = {
     "dsac_diffmaps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                       _F, _P, _P],
     "dsac_irls_stats": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                        _P, _P],
+                        _I, _I, _I, _P, _P],
 }
 
 
@@ -111,14 +111,19 @@ _PTXAS_NUMBERS = {
 
 
 def kernel_name(mangled: str) -> str:
-    """``refine_kernel`` or ``p3p_kernel<4>`` of a mangled kernel name."""
+    """``refine_kernel``, ``p3p_kernel<4>`` or ``irls_stats_kernel<true>``
+    of a mangled kernel name."""
     pos = 3 if mangled.startswith("_ZN") else 2
     while m := re.match(r"\d+", mangled[pos:]):  # <length><identifier>
         pos += m.end() + int(m.group())
         name = mangled[pos - int(m.group()):pos]
         if name.endswith("_kernel"):
-            arg = re.match(r"ILi(\d+)E", mangled[pos:])
-            return name + (f"<{arg.group(1)}>" if arg else "")
+            arg = re.match(r"IL([ib])(\d+)E", mangled[pos:])
+            if arg is None:
+                return name
+            value = (arg.group(2) if arg.group(1) == "i"
+                     else ("false", "true")[int(arg.group(2))])
+            return f"{name}<{value}>"
     return mangled
 
 

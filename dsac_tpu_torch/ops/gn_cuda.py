@@ -21,10 +21,12 @@ Ports of dsac_tpu/ops/gn_pallas.py, with a leading frame axis: poses
   differences over the initial pose's 6 tangent dimensions, with all 12
   probes of every pose refined in one more launch of the same kernel.
 * ``irls_stats`` (<- irls_stats): one pass of the 28 IRLS statistics per
-  pose; ``refine_pose_fused_steps`` (<- refine_pose_fused_steps) runs one
-  such launch per step and the 6x6 solve and pose update in PyTorch.  It
-  is the independent check of the refine kernel: the two kernels share
-  their per-pixel body (csrc/irls_stats.cuh), not their solve.
+  pose, in the refine kernel's layouts (csrc/pose_layout.cuh;
+  ``irls_stats_layout`` picks one per launch); ``refine_pose_fused_steps``
+  (<- refine_pose_fused_steps) runs one such launch per step and the 6x6
+  solve and pose update in PyTorch.  It is the independent check of the
+  refine kernel: the two kernels share their per-pixel body
+  (csrc/irls_stats.cuh) and the order of their sums, not their solve.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute;
 the backward counts its own in ``InitSensitiveRefine.launches``.
@@ -86,9 +88,10 @@ def refine_pose_fused_ref(poses: Pose, coords: torch.Tensor,
 
 
 class RefineLayout(NamedTuple):
-    """How csrc/refine.cu lays the poses out: ``cluster`` CTAs (a
-    thread-block cluster) share one pose's pixels, or, with ``cluster``
-    1, a CTA holds ``poses_per_cta`` poses of one frame; each pose gets
+    """How csrc/refine.cu and csrc/irls_stats.cu lay the poses out
+    (csrc/pose_layout.cuh): ``cluster`` CTAs (a thread-block cluster)
+    share one pose's pixels, or, with ``cluster`` 1, a CTA holds
+    ``poses_per_cta`` poses of one frame; each pose gets
     ``warps_per_pose`` warps in each of its CTAs."""
 
     cluster: int
@@ -100,9 +103,10 @@ class RefineLayout(NamedTuple):
         return self.poses_per_cta * self.warps_per_pose * 32
 
 
-# limits of csrc/refine.cu on Hopper: its __launch_bounds__, the portable
-# cluster size, and the shared memory a block can have; and its static
-# shared memory: the double-buffered warp sums and cluster slots (8 x 32
+# limits of csrc/refine.cu and csrc/irls_stats.cu on Hopper: their
+# __launch_bounds__, the portable cluster size, and the shared memory a
+# block can have; and their static shared memory (pose_layout.cuh:
+# PoseSums): the double-buffered warp sums and cluster slots (8 x 32
 # floats each), and the slots' two mbarriers
 REFINE_MAX_THREADS = 256
 MAX_CLUSTER = 8
@@ -236,6 +240,33 @@ def irls_stats_ref(R: torch.Tensor, t: torch.Tensor, coords: torch.Tensor,
                      dim=-1)
 
 
+# The IRLS-stats kernel takes the refine kernel's layouts and limits
+# (csrc/pose_layout.cuh), and picks them by refine_layout's rule, which the
+# H100 sweep of both of its shapes kept (cli/profile_kernels.py --sweep
+# --kernels irls_stats, PERF.md).
+irls_stats_layout = refine_layout
+check_irls_stats_layout = check_refine_layout
+
+
+def launch_irls_stats(R: torch.Tensor, t: torch.Tensor, coords: torch.Tensor,
+                      pix: torch.Tensor, cam: Camera, threshold: float = 10.0,
+                      beta: float = 1.0, max_error: float = 100.0,
+                      layout: RefineLayout | None = None) -> torch.Tensor:
+    """One launch of the IRLS-stats kernel on checked CUDA tensors, in
+    ``layout`` (``irls_stats_layout``'s by default).  Not counted: the
+    caller counts its launches."""
+    B, P, N, dev = _build.check_poses(R, t, coords, pix)
+    if layout is None:
+        layout = irls_stats_layout(B * P, P, N, _build.sm_count(dev))
+    check_irls_stats_layout(layout, N)
+    out = torch.empty((B, P, 28), dtype=torch.float32, device=dev)
+    _build.launch("dsac_irls_stats", dev, R.data_ptr(), t.data_ptr(),
+                  coords.data_ptr(), pix.data_ptr(), B, P, N, cam.focal,
+                  cam.cx, cam.cy, max_error, threshold, 1.0 / beta, *layout,
+                  out.data_ptr())
+    return out
+
+
 def irls_stats(R: torch.Tensor, t: torch.Tensor, coords: torch.Tensor,
                pix: torch.Tensor, cam: Camera, threshold: float = 10.0,
                beta: float = 1.0, max_error: float = 100.0) -> torch.Tensor:
@@ -243,15 +274,12 @@ def irls_stats(R: torch.Tensor, t: torch.Tensor, coords: torch.Tensor,
     against coords (B, N, 3) mm at pixels pix (B, N, 2): the 21
     upper-triangle entries of JtJ (row-major), the 6 of Jtr, and the soft
     inlier count, with soft-inlier weights and the 1 mm z-floor."""
-    B, P, N, dev = _build.check_poses(R, t, coords, pix)
+    dev = _build.check_poses(R, t, coords, pix)[3]
     if dev.type == "cpu":
         return irls_stats_ref(R, t, coords, pix, cam, threshold, beta,
                               max_error)
-    out = torch.empty((B, P, 28), dtype=torch.float32, device=dev)
-    _build.launch("dsac_irls_stats", dev, R.data_ptr(), t.data_ptr(),
-                  coords.data_ptr(), pix.data_ptr(), B, P, N, cam.focal,
-                  cam.cx, cam.cy, max_error, threshold, 1.0 / beta,
-                  out.data_ptr())
+    out = launch_irls_stats(R, t, coords, pix, cam, threshold, beta,
+                            max_error)
     irls_stats.launches += 1
     return out
 

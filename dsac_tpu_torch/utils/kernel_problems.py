@@ -1,7 +1,8 @@
 """Inputs for holding the CUDA kernels against their plain versions and
 timing them on the card, made on the device from a ``torch.Generator``,
-and the shapes the main path gives the refine, P3P, score and diff-map
-kernels.  Shared by ``chip_smoke.py`` and ``cli/profile_kernels.py``."""
+and the shapes the main path gives the refine, P3P, score, diff-map and
+IRLS-stats kernels.  Shared by ``chip_smoke.py`` and
+``cli/profile_kernels.py``."""
 
 from __future__ import annotations
 
@@ -47,6 +48,17 @@ DIFFMAP_SHAPES = {
     "serve": (FRAMES, HYPS),  # a score-CNN or fixed-T serve batch
     "test_ransac": (1, HYPS),  # one test_ransac frame
 }
+# The IRLS-stats kernel's shapes: (frames, poses a frame).
+IRLS_STATS_SHAPES = {
+    # a pass of the stepwise refiner, 16 a frame under test_ransac
+    # --check-refine
+    "test_ransac": (1, HYPS),
+    "refine_all": (FRAMES, HYPS),  # a refine-all batch
+}
+# The IRLS statistics' bars against their plain version
+# (tests/test_gn_pallas.py:46-55), per part of ops/gn_cuda.py:unpack_stats:
+# (part, rtol, atol).
+IRLS_BARS = (("JtJ", 2e-3, 2.0), ("Jtr", 2e-3, 2.0), ("n_in", 1e-3, 0.05))
 
 
 def make_problem(B: int, N: int, dev, gen: torch.Generator

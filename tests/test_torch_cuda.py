@@ -12,7 +12,10 @@ each of their layouts (ops/gn_cuda.py:RefineLayout, ops/p3p_cuda.py:
 P3PLayout), on ragged sizes too, and the refine layouts against each
 other at the refine bar; the score and diff-map kernels in every layout
 that ``cli/profile_kernels.py --sweep`` tries, on ragged sizes, the score
-bit-identical from launch to launch.  As in tests/test_torch_diffmap_stats.py:
+bit-identical from launch to launch; the IRLS-stats kernel in every
+layout of its sweep, on ragged sizes, bit-identical from launch to
+launch and equal in its inlier mass to the refine kernel's n_in after one
+step in the same layout.  As in tests/test_torch_diffmap_stats.py:
 diff-maps rtol 1e-4, atol 1e-2 (tests/test_pallas_kernels.py:42-53); IRLS
 statistics n_in rtol 1e-3 / atol 0.05, JtJ and Jtr rtol 2e-3 / atol 2.0
 (tests/test_gn_pallas.py:46-55); the stepwise refiner against the refine
@@ -38,9 +41,11 @@ from dsac_tpu_torch.ops.diffmap_cuda import (DiffmapLayout, diffmaps,
                                              soft_inlier_scores_ref)
 from dsac_tpu_torch.geometry.pose import pose_to_vec6
 from dsac_tpu_torch.ops import _build, gn_cuda
+from dsac_tpu_torch.cli.profile_kernels import sweep_refine_layouts
 from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine, RefineLayout,
-                                        irls_stats, irls_stats_ref,
-                                        launch_refine,
+                                        irls_stats, irls_stats_layout,
+                                        irls_stats_ref, launch_irls_stats,
+                                        launch_refine, refine_layout,
                                         refine_init_sensitive,
                                         refine_pose_fused,
                                         refine_pose_fused_ref,
@@ -187,8 +192,8 @@ def test_refine_freezes_and_stays_finite(problem, layout):
 def _pool(rng, gt, scale_w, scale_t, P=64):
     """P poses per frame around the known ones."""
     def noise(scale):
-        return torch.from_numpy(rng.normal(size=(2, P, 3)) * scale).float(
-        ).to(gt.t.device)
+        return torch.from_numpy(rng.normal(size=(gt.t.shape[0], P, 3))
+                                * scale).float().to(gt.t.device)
 
     return Pose((so3_exp(noise(scale_w)) @ gt.R[:, None]).contiguous(),
                 (gt.t[:, None] + noise(scale_t)).contiguous())
@@ -295,6 +300,58 @@ def test_stepwise_refiner_matches_refine_kernel(problem):
     assert float((a.t - b.t).abs().max()) <= 2.0
     assert float((a.R - b.R).abs().max()) <= 1e-4
     assert float((na - nb).abs().max()) <= 0.5
+
+
+def _irls_bar(got, want):
+    ks, rs = unpack_stats(got), unpack_stats(want)
+    torch.testing.assert_close(ks[2], rs[2], rtol=1e-3, atol=0.05)
+    torch.testing.assert_close(ks[1], rs[1], rtol=2e-3, atol=2.0)
+    torch.testing.assert_close(ks[0], rs[0], rtol=2e-3, atol=2.0)
+
+
+@pytest.mark.parametrize("layout", sweep_refine_layouts(),
+                         ids=lambda x: "c{}g{}w{}".format(*x))
+def test_irls_stats_layouts_match_plain_version(cuda, layout):
+    """Every layout of ``profile_kernels --sweep --kernels irls_stats`` at
+    ragged sizes (3 frames of 37 poses and 1,601 pixels: frames 1 and 2
+    start unaligned and stage with scalar loads) against the plain
+    version; two launches bit-identical; and the refine kernel's n_in after
+    one step in the same layout equal to the pass's inlier mass bit for
+    bit."""
+    rng = np.random.default_rng(1306)
+    gt, coords, pix = frames(rng, B=3, N=1601)
+    pool = _pool(rng, Pose(gt.R.to(cuda), gt.t.to(cuda)), 0.2, 300.0, P=37)
+    args = (pool.R, pool.t, coords.to(cuda), pix.to(cuda))
+    got = launch_irls_stats(*args, CAM, layout=layout)
+    _irls_bar(got, irls_stats_ref(*args, CAM))
+    assert torch.equal(got, launch_irls_stats(*args, CAM, layout=layout))
+    _, n_one = launch_refine(*args, CAM, 1, 10.0, 1.0, 50.0, 1e-4, 100.0,
+                             layout=layout)
+    assert torch.equal(n_one, got[..., 27])
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_irls_stats_is_a_refine_step_where_the_layouts_coincide(problem, B):
+    """At 256 poses a frame (the IRLS-stats shapes of the main path, one
+    frame and a batch) a refine launch of one step in the wrapper's layout
+    returns the wrapper's inlier mass as n_in, bit for bit: through
+    refine_pose_fused where refine_layout picks the same layout (as on the
+    H100)."""
+    rng, gt, coords, pix = problem
+    pool = _pool(rng, gt, 0.05, 60.0, P=256)
+    poses = Pose(pool.R[:B].contiguous(), pool.t[:B].contiguous())
+    c, x = coords[:B].contiguous(), pix[:B].contiguous()
+    sms = _build.sm_count(c.device)
+    layout = irls_stats_layout(B * 256, 256, 1600, sms)
+    stats = irls_stats(poses.R, poses.t, c, x, CAM)
+    if layout == refine_layout(B * 256, 256, 1600, sms):
+        _, n_one = refine_pose_fused(poses, c, x, CAM, outer_steps=1,
+                                     inner_iters=1)
+    else:
+        _, n_one = launch_refine(poses.R, poses.t, c, x, CAM, 1, 10.0, 1.0,
+                                 50.0, 1e-4, 100.0, layout=layout)
+    assert torch.equal(n_one, stats[..., 27])
+    _irls_bar(stats, irls_stats_ref(poses.R, poses.t, c, x, CAM))
 
 
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(problem):

@@ -1,13 +1,15 @@
-"""The layout functions of the refine, P3P, score and diff-map kernels
-(ops/gn_cuda.py:refine_layout, ops/p3p_cuda.py:p3p_layout,
-ops/diffmap_cuda.py:score_layout and diffmap_layout): pure functions of
-their arguments, run here on the CPU.  Every layout they pick is one the
-CUDA kernels take (csrc/refine.cu, csrc/p3p.cu, csrc/score.cu,
-csrc/diffmap.cu: clusters of at most 8 CTAs, at most 256 threads a refine
-CTA and 1,024 a P3P block or score or diff-map CTA, shared memory under
-the H100's 227 KB a block, float4 stores only where N % 4 == 0), the main
+"""The layout functions of the refine, IRLS-stats, P3P, score and
+diff-map kernels (ops/gn_cuda.py:refine_layout and irls_stats_layout,
+ops/p3p_cuda.py:p3p_layout, ops/diffmap_cuda.py:score_layout and
+diffmap_layout): pure functions of their arguments, run here on the CPU.
+Every layout they pick is one the CUDA kernels take (csrc/refine.cu,
+csrc/irls_stats.cu, csrc/p3p.cu, csrc/score.cu, csrc/diffmap.cu: clusters
+of at most 8 CTAs, at most 256 threads a refine or IRLS-stats CTA and
+1,024 a P3P block or score or diff-map CTA, shared memory under the
+H100's 227 KB a block, float4 stores only where N % 4 == 0), the main
 path's regimes get the layouts the H100 sweep chose (PERF.md), and the
-score and diff-map grids cover every (frame, hypothesis, pixel) once."""
+IRLS-stats, score and diff-map grids cover every (frame, pose or
+hypothesis, pixel) once."""
 
 import numpy as np
 import pytest
@@ -22,11 +24,15 @@ from dsac_tpu_torch.ops.diffmap_cuda import (MAX_THREADS, SCORE_TILES,
                                              diffmap_smem_bytes, score_grid,
                                              score_layout, score_smem_bytes)
 from dsac_tpu_torch.ops.gn_cuda import (MAX_CLUSTER, REFINE_MAX_THREADS,
+                                        REFINE_STATIC_SMEM_BYTES,
                                         SMEM_LIMIT_BYTES, RefineLayout,
-                                        check_refine_layout, refine_layout,
+                                        check_irls_stats_layout,
+                                        check_refine_layout,
+                                        irls_stats_layout, refine_layout,
                                         refine_smem_bytes)
 from dsac_tpu_torch.ops.p3p_cuda import (P3PLayout, check_p3p_layout,
                                          p3p_layout)
+from dsac_tpu_torch.utils.kernel_problems import IRLS_STATS_SHAPES
 
 H100_SMS = 132
 
@@ -35,8 +41,8 @@ def test_refine_shared_memory_limit_is_the_h100s():
     assert SMEM_LIMIT_BYTES == 227 * 1024  # a block's most on Hopper
 
 
-@pytest.mark.parametrize("sm_count", [132, 114, 78, 16])
-@pytest.mark.parametrize("N", [1, 14, 100, 1600, 1601, 4800, 20_000])
+@pytest.mark.parametrize("sm_count", [132, 114, 78, 66, 16, 1])
+@pytest.mark.parametrize("N", [1, 14, 31, 100, 1600, 1601, 4800, 20_000])
 def test_refine_layouts_are_legal(N, sm_count):
     for P in (1, 3, 4, 12, 37, 256, 1024):
         for B in (1, 2, 8, 64):
@@ -87,6 +93,92 @@ def test_refine_layout_splits_large_frames_over_a_cluster():
 def test_refine_layout_check_refuses_what_the_kernel_does_not_take(layout):
     with pytest.raises(ValueError):
         check_refine_layout(layout, 1600)
+
+
+def test_refine_layouts_and_limits_are_what_they_were():
+    """The staging and sums that refine.cu shares with irls_stats.cu
+    (csrc/pose_layout.cuh) keep refine's shared memory: 20 bytes a pixel
+    of the CTA's slice and 4,112 static bytes (double-buffered warp and
+    cluster sums, two mbarriers)."""
+    assert REFINE_STATIC_SMEM_BYTES == 4 * 2 * 2 * 8 * 32 + 2 * 8 == 4112
+    assert refine_smem_bytes(RefineLayout(1, 8, 1), 1600) == 32_000 + 4112
+    assert refine_smem_bytes(RefineLayout(8, 1, 4), 1600) == 4_000 + 4112
+    assert refine_smem_bytes(RefineLayout(8, 1, 4), 1601) == 4_020 + 4112
+    assert refine_smem_bytes(RefineLayout(2, 1, 8), 20_000) == 200_000 + 4112
+
+
+# ---- the IRLS-stats kernel (csrc/irls_stats.cu): the refine kernel's
+# layouts (csrc/pose_layout.cuh) ----
+
+def test_irls_stats_kernel_takes_the_refine_kernels_layouts():
+    """irls_stats.cu takes refine.cu's layouts and limits and is given
+    them by refine's rule (the refine tests above hold both); a frame too
+    large for a CTA's staged slice is refused in a layout without a
+    cluster."""
+    assert irls_stats_layout is refine_layout
+    assert check_irls_stats_layout is check_refine_layout
+    with pytest.raises(ValueError, match="shared memory"):
+        check_irls_stats_layout(RefineLayout(1, 8, 1), 20_000)
+
+
+@pytest.mark.parametrize("shape, want", [
+    ("test_ransac", RefineLayout(1, 1, 8)),  # a stepwise refiner's pass
+    ("refine_all", RefineLayout(1, 8, 1)),   # a refine-all batch
+])
+def test_irls_stats_shapes_get_the_sweeps_layouts(shape, want):
+    B, P = IRLS_STATS_SHAPES[shape]
+    assert irls_stats_layout(B * P, P, 1600, H100_SMS) == want
+
+
+def test_irls_stats_layout_splits_large_frames_over_a_cluster():
+    for B, P in IRLS_STATS_SHAPES.values():
+        lay = irls_stats_layout(B * P, P, 20_000, H100_SMS)
+        assert lay.cluster > 1 and lay.poses_per_cta == 1
+        assert refine_smem_bytes(lay, 20_000) <= SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        irls_stats_layout(256, 256, 100_000, H100_SMS)
+
+
+def pose_cover(layout, B, P, N):
+    """How often the IRLS-stats kernel visits each (frame, pose, pixel) and
+    writes each (frame, pose): csrc/pose_layout.cuh's grid
+    (launch_in_layout), place (locate) and pixel order (sum_pixels), and
+    irls_stats.cu's write by warp 0 of the pose in rank 0."""
+    C, G, W = layout
+    pixels = np.zeros((B, P, N), np.int64)
+    writes = np.zeros((B, P), np.int64)
+    groups = -(-P // G)
+    slice_ = -(-N // C)
+    lane = np.arange(32)
+    for x in range(B * groups * C):
+        rank, unit = x % C, x // C
+        b = unit // groups
+        assert 0 <= b < B
+        start = rank * slice_
+        length = max(0, min(slice_, N - start))
+        for warp in range(G * W):
+            g, w = warp // W, warp % W
+            j = (unit % groups) * G + g
+            if j >= P:
+                continue
+            n = (np.arange(w * 32, max(length, 1), W * 32)[:, None]
+                 + lane).ravel()
+            np.add.at(pixels[b, j], start + n[n < length], 1)
+            if rank == 0 and w == 0:
+                writes[b, j] += 1
+    return pixels, writes
+
+
+@pytest.mark.parametrize("B, P, N", [(2, 1, 14), (1, 3, 100), (3, 37, 1601),
+                                     (1, 5, 1600), (2, 9, 7)])
+def test_irls_stats_grid_covers_every_pair_once(B, P, N):
+    for lay in (irls_stats_layout(B * P, P, N, H100_SMS),
+                RefineLayout(8, 1, 4), RefineLayout(2, 1, 2),
+                RefineLayout(4, 1, 1), RefineLayout(1, 8, 1),
+                RefineLayout(1, 2, 4), RefineLayout(1, 1, 8)):
+        check_irls_stats_layout(lay, N)
+        pixels, writes = pose_cover(lay, B, P, N)
+        assert (pixels == 1).all() and (writes == 1).all(), lay
 
 
 @pytest.mark.parametrize("sm_count", [132, 78])

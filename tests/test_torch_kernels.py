@@ -157,11 +157,23 @@ class TestWrappers:
         with pytest.raises(ValueError):
             p3p_solve(coords[0, :8].reshape(2, 4, 3), pix[0, :6], CAM)
 
+    @pytest.mark.parametrize("mangled, name", [
+        ("_ZN12_GLOBAL__N_113refine_kernelENS_10RefineArgsE",
+         "refine_kernel"),
+        ("_ZN12_GLOBAL__N_110p3p_kernelILi4EEEvPKfS2_iPf", "p3p_kernel<4>"),
+        ("_ZN12_GLOBAL__N_117irls_stats_kernelILb1EEEvNS_8IrlsArgsE",
+         "irls_stats_kernel<true>"),
+        ("_ZN12_GLOBAL__N_117irls_stats_kernelILb0EEEvNS_8IrlsArgsE",
+         "irls_stats_kernel<false>"),
+    ])
+    def test_ptxas_report_names_each_instantiation(self, mangled, name):
+        assert _build.kernel_name(mangled) == name
+
     def test_build_names_the_sources(self, monkeypatch, tmp_path):
         assert [p.name for p in _build.sources()] == [
             "diffmap.cu", "irls_stats.cu", "p3p.cu", "refine.cu", "score.cu"]
-        assert [p.name for p in _build.headers()] == ["irls_stats.cuh",
-                                                      "reproj.cuh"]
+        assert [p.name for p in _build.headers()] == [
+            "irls_stats.cuh", "pose_layout.cuh", "reproj.cuh"]
         name = _build.library_path().name
         assert name.startswith("libdsac_kernels_") and name.endswith(".so")
         assert _build.library_path() == _build.library_path()
