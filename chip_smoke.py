@@ -53,7 +53,23 @@ stopped):
                   stepwise refiner beside it, which must agree with it at
                   the served hypothesis to 1e-2 mm and 1e-5), then once
                   more with --select inlier;
-8. train_grad     one rendered frame at full width (DenseCoordNet 64,
+8. serve_softam   serve --softam on the 64 fixture frames, one timed pass:
+                  the soft-argmax average of each frame's pool (two-phase
+                  sampling, fused soft-inlier scoring) refined by one
+                  launch of the refine kernel per batch (8 frames x 1
+                  pose), with artifacts/coord_e2e_softam.npz;
+9. serve_softam_cnn  the same with --no-fused-scoring: the diff-map
+                  kernel and artifacts/score_e2e_softam.npz;
+10. test_ransac_softam  test_ransac_softam on the 64 fixture frames
+                  (--fused-refine --rdraw 0);
+11. test_ransac_variants  test_ransac --fused-refine --rdraw 0 on 16
+                  frames with --model none (the soft-inlier head on the
+                  diff-maps), --refine-variant hard (refinement in
+                  PyTorch) and --fused-scoring (the score kernel), each
+                  with its counters set to 0; the last also exports its
+                  poses, which are parsed back and held to the served
+                  ones (1e-6, 1e-6 m);
+12. train_grad    one rendered frame at full width (DenseCoordNet 64,
                   ScoreNet 1.0, H = 256, T = 16) with the trained weights
                   and the same draws: the DSAC objective's gradients in
                   refine mode "implicit" (the refine kernel) against
@@ -67,22 +83,26 @@ stopped):
                   backward against its plain version at SoftAM's
                   averaged pose of fixture frames 0-7, 16 steps
                   (softam_average_backward);
-9. train_ransac   dsac_tpu_torch.cli.train_ransac, 8 rounds of end-to-end
+13. train_ransac  dsac_tpu_torch.cli.train_ransac, 8 rounds of end-to-end
                   DSAC training in refine mode "implicit" from the trained
                   weights, written as the port's obj_model_init and
                   score_model_init snapshots into a fresh runs/ directory;
-10. train_ransac_softam  the same with the SoftAM objective.
+14. train_ransac_softam  the same with the SoftAM objective.
+
+The accuracy bars of phases 8-11 are the reference's accuracy on the CPU
+on the same frames (REF_* below) less 2 of 64 frames or 1 of 16.
 
 The kernels phase also holds the refine kernel's init-pose backward
 (ops/gn_cuda.py:InitSensitiveRefine, one launch on B x 12 probe poses)
 against its plain version and against autograd through the truncated
 PyTorch unroll, at the training shape (B = 1) and at B = 8.
 
-Before each of phases 4-10 the kernels' launch counters are set to 0, and
-they are read just after it, with the phase's peak device memory; each
-phase fails if a kernel of its path was never launched.  Then
-nvidia-smi's line, one JSON line of per-kernel numbers (launches summed
-over phases 4-10, by phase, and the kernels phase's check launches apart),
+Before each of phases 4-14 (each variant of phase 11) the kernels' launch
+counters are set to 0, and they are read just after it, with the phase's
+peak device memory; each phase fails if a kernel of its path was never
+launched.  Then nvidia-smi's line, one JSON line of per-kernel numbers
+(launches summed over phases 4-14, by phase, and the kernels phase's
+check launches apart),
 and the last line
 {"ok": true, "device": {...}}.  Any failed bar or error exits non-zero
 before that last line.  Without a CUDA device, or without the repository
@@ -129,6 +149,27 @@ STEPS = 16  # IRLS steps of a refinement (8 reweightings x 2 GN steps)
 REF_TEST_RANSAC_ACCURACY = 0.96875
 TEST_RANSAC_SLACK = 2 / 64
 
+# The same for the phases of the SoftAM and test_ransac-variant paths: the
+# reference's accuracy on the CPU with the committed weights (argmax, frame
+# i keyed PRNGKey(i)), printed by
+# `PYTHONPATH=. python tests/test_torch_eval_cli.py VARIANT FRAMES`; each
+# phase may lose at most 2 of 64 frames (1 of 16) against it.
+# serve --softam: two-phase sampling, fused soft scoring, the refine kernel
+# on the average (serve_softam, 64 frames)
+REF_SERVE_SOFTAM_ACCURACY = 1.0
+# serve --softam --no-fused-scoring: the score CNN (serve_softam_cnn, 64
+# frames; on the first 16, the reference gives 1.0 and the port 15 of 16
+# on the H100, which a 16-frame bar would hold with no frame to spare)
+REF_SERVE_SOFTAM_CNN_ACCURACY = 0.96875
+# test_ransac --softam --fused-refine (test_ransac_softam, 64 frames)
+REF_TEST_RANSAC_SOFTAM_ACCURACY = 0.9375
+# test_ransac --fused-refine variants on 16 frames: --model none
+# (model_none), --refine-variant hard (refine_hard), --fused-scoring
+# (fused_scoring)
+REF_VARIANT_ACCURACY = {"model_none": 1.0, "refine_hard": 0.9375,
+                        "fused_scoring": 1.0}
+VARIANT_FRAMES = 16
+
 # On the serve path's P3P pool a kernel may miss its bar against the
 # plain version in f64 on at most this many more elements than the plain
 # version's own f32 result does.
@@ -151,7 +192,21 @@ PATHS = {"serve": ("p3p", "soft_inlier_score", "refine_irls"),
          "test_ransac": ("diffmap", "refine_irls", "irls_stats"),
          "train_grad": ("refine_irls", "refine_init_backward"),
          "train_ransac": ("refine_irls",),
-         "train_ransac_softam": ("refine_irls", "refine_init_backward")}
+         "train_ransac_softam": ("refine_irls", "refine_init_backward"),
+         "serve_softam": ("p3p", "soft_inlier_score", "refine_irls"),
+         "serve_softam_cnn": ("p3p", "diffmap", "refine_irls"),
+         "test_ransac_softam": ("diffmap", "refine_irls"),
+         "test_ransac_variants": ("diffmap", "refine_irls",
+                                  "soft_inlier_score")}
+# test_ransac_variants: each variant's flags and path, and the kernels it
+# must not launch (hard refinement runs in PyTorch)
+VARIANTS = {"model_none": (["--model", "none"], ("diffmap", "refine_irls"),
+                           ("soft_inlier_score",)),
+            "refine_hard": (["--refine-variant", "hard"], ("diffmap",),
+                            ("refine_irls", "soft_inlier_score")),
+            "fused_scoring": (["--fused-scoring"],
+                              ("soft_inlier_score", "refine_irls"),
+                              ("diffmap",))}
 
 # The init-pose backward: inits 0.03 rad and 60 mm off, refined for 1
 # step, against its plain version, its plain version in f64 and autograd
@@ -793,17 +848,68 @@ def run_phase(fn, kernels: dict) -> tuple[dict, dict, float, int]:
 
 
 def serve_problems(res: dict, launches: dict, path: tuple,
-                   batches: int) -> list[str]:
+                   batches: int, bar: float = 0.95,
+                   bar_note: str = "") -> list[str]:
     problems = [f"{k} kernel never launched" for k in path
                 if launches[k] == 0]
-    if not res["accuracy_5cm5deg"] >= 0.95:
-        problems.append(f"accuracy {res['accuracy_5cm5deg']} < 0.95")
+    if not res["accuracy_5cm5deg"] >= bar:
+        problems.append(f"accuracy {res['accuracy_5cm5deg']} < {bar}"
+                        + bar_note)
     if not res["poses_finite"]:
         problems.append("non-finite served pose")
     if "diffmap" in path and launches["diffmap"] != batches:
         problems.append(f"diffmap launched {launches['diffmap']} times for "
                         f"{batches} served batches")
+    if res.get("variant") == "softam" and launches["refine_irls"] != batches:
+        problems.append(f"refine_irls launched {launches['refine_irls']} "
+                        f"times for {batches} served batches (one launch "
+                        "refines a batch's averages)")
     return problems
+
+
+def eval_problems(res: dict, launches: dict, path: tuple, absent: tuple,
+                  frames: int, ref: float, lose: int) -> list[str]:
+    """A test_ransac run of the SoftAM or variant phases: each kernel of
+    ``path`` launched once a frame, none of ``absent``, finite results, and
+    the accuracy at most ``lose`` frames below the reference's ``ref``."""
+    problems = [f"{k} launched {launches[k]} times, not {frames}"
+                for k in path if launches[k] != frames]
+    problems += [f"{k} launched {launches[k]} times off its path"
+                 for k in absent if launches[k]]
+    bar = ref - lose / frames
+    if not res["accuracy_5cm5deg"] >= bar:
+        problems.append(f"accuracy {res['accuracy_5cm5deg']} < {bar} "
+                        f"(reference {ref} less {lose} of {frames} frames)")
+    if not (res["all_finite"] and all(math.isfinite(res[k]) for k in (
+            "mean_expected_loss", "mean_entropy_bits"))):
+        problems.append("non-finite per-frame result, expected loss or "
+                        "entropy")
+    return problems
+
+
+def exported_pose_problems(res: dict, pose_dir: Path) -> list[str]:
+    """Every exported pose file parsed back with parse_pose_file against
+    the served pose: 1e-6 on R, 1e-6 m on t."""
+    import numpy as np
+    from dsac_tpu_torch.data.seven_scenes import parse_pose_file
+    R, t = res["final"].R.cpu().double().numpy(), \
+        res["final"].t.cpu().double().numpy()
+    files = sorted(pose_dir.glob("frame-*.pose.txt"))
+    if len(files) != len(R):
+        return [f"{len(files)} pose files for {len(R)} frames"]
+    worst_R = worst_t = 0.0
+    for i, f in enumerate(files):
+        if f.name != f"frame-{i:06d}.pose.txt":
+            return [f"unexpected pose file {f.name}"]
+        pR, pt = parse_pose_file(f)
+        worst_R = max(worst_R, float(np.abs(pR - R[i]).max()))
+        worst_t = max(worst_t, float(np.abs(pt - t[i] / 1000.0).max()))
+    res["export_check"] = {"files": len(files), "max_abs_dR": worst_R,
+                           "max_abs_dt_m": worst_t}
+    if not (worst_R <= 1e-6 and worst_t <= 1e-6):
+        return [f"exported poses: |dR| {worst_R} (bar 1e-6), |dt| "
+                f"{worst_t} m (bar 1e-6)"]
+    return []
 
 
 def test_ransac_problems(res: dict, launches: dict, path: tuple,
@@ -986,11 +1092,11 @@ def softam_average_backward(dev, coord_net, score_net, scene, cfg,
     cosine >= 0.999 and norm ratio 0.99-1.01 against both."""
     import torch
     from dsac_tpu_torch.geometry.loss import max_loss
-    from dsac_tpu_torch.geometry.pose import (Pose, pose_from_vec6,
-                                              pose_to_vec6)
+    from dsac_tpu_torch.geometry.pose import Pose
     from dsac_tpu_torch.geometry.rotation import so3_exp
     from dsac_tpu_torch.ops.gn_cuda import refine_init_sensitive
-    from dsac_tpu_torch.pipeline.forward import process_frame_softam
+    from dsac_tpu_torch.pipeline.forward import (process_frame_softam,
+                                                 softam_average)
     from dsac_tpu_torch.pipeline.train import dense_coord_apply
 
     cam = cfg.data.camera()
@@ -1003,8 +1109,7 @@ def softam_average_backward(dev, coord_net, score_net, scene, cfg,
                 lambda im, pix: dense_coord_apply(coord_net, im, pix),
                 score_net, cam, cfg, refine_mode="implicit",
                 generator=torch.Generator(device=dev).manual_seed(7))
-            avg = pose_from_vec6(torch.sum(res.probs[..., None]
-                                           * pose_to_vec6(res.hyps), dim=1))
+            avg = softam_average(res.probs, res.hyps)
         pix = res.sampling.reshape(1, -1, 2).to(torch.float32).contiguous()
 
         def grad(route, dtype=torch.float32):
@@ -1113,7 +1218,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port; absent when this file stands alone
-    from dsac_tpu_torch.cli import serve, test_ransac
+    from dsac_tpu_torch.cli import serve, test_ransac, test_ransac_softam
     from dsac_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -1178,6 +1283,89 @@ def main() -> int:
     emit({"phase": "test_ransac_select_inlier",
           "seconds": time.perf_counter() - t0,
           "accuracy_5cm5deg": inlier["accuracy_5cm5deg"]})
+    # SoftAM serving: a batch's 8 averages refined in one launch of the
+    # refine kernel (B = 8 x P = 1); name -> (argv, batches served in the
+    # warm-up and timed passes, distinct frames, reference accuracy,
+    # frames the phase may lose against it)
+    softam_phases = {
+        "serve_softam": (serve_args + ["--softam", "--queue", "8", "--reps",
+                                       "1"], (1 + 1) * 8, 64,
+                         REF_SERVE_SOFTAM_ACCURACY, 2),
+        "serve_softam_cnn": (serve_args + [
+            "--softam", "--no-fused-scoring", "--queue", "8", "--reps", "1"],
+            (1 + 1) * 8, 64, REF_SERVE_SOFTAM_CNN_ACCURACY, 2),
+    }
+    for name, (argv, batches, frames, ref, lose) in softam_phases.items():
+        res, launches, seconds, peak = run_phase(lambda: serve.main(argv),
+                                                 serve.KERNELS)
+        emit({"phase": name, "seconds": seconds, "launches": launches,
+              "peak_memory_bytes": peak})
+        results[name], by_phase[name] = res, launches
+        for k, n in launches.items():
+            total[k] += n
+        bar = ref - lose / frames
+        problems = serve_problems(res, launches, PATHS[name], batches, bar,
+                                  f" (reference {ref} less {lose} of "
+                                  f"{frames} frames)")
+        if problems:
+            print(f"chip_smoke: {name} failed: " + "; ".join(problems),
+                  file=sys.stderr)
+            return 1
+
+    eval_args = ["--fused-refine", "--rdraw", "0", "--device", "cuda"]
+    res, launches, seconds, peak = run_phase(
+        lambda: test_ransac_softam.main(["--synthetic", "64"] + eval_args),
+        serve.KERNELS)
+    results["test_ransac_softam"] = res
+    by_phase["test_ransac_softam"] = launches
+    for k, n in launches.items():
+        total[k] += n
+    emit({"phase": "test_ransac_softam", "seconds": seconds,
+          "launches": launches, "peak_memory_bytes": peak,
+          "test_ransac_seconds": res["seconds"], "tag": res["tag"]})
+    problems = eval_problems(res, launches, PATHS["test_ransac_softam"],
+                             ("soft_inlier_score", "p3p"), 64,
+                             REF_TEST_RANSAC_SOFTAM_ACCURACY, 2)
+    if problems:
+        print("chip_smoke: test_ransac_softam failed: " + "; ".join(problems),
+              file=sys.stderr)
+        return 1
+
+    # the test_ransac variants, each with its counters set to 0; the
+    # fused-scoring one also exports its poses
+    pose_dir = REPO / "runs" / "smoke_poses"
+    shutil.rmtree(pose_dir, ignore_errors=True)
+    variants, phase_launches, problems = {}, {k: 0 for k in serve.KERNELS}, []
+    for v, (flags, path, absent) in VARIANTS.items():
+        export = (["--export-poses", str(pose_dir)]
+                  if v == "fused_scoring" else [])
+        res, launches, seconds, peak = run_phase(
+            lambda: test_ransac.main(["--synthetic", str(VARIANT_FRAMES)]
+                                     + eval_args + flags + export),
+            serve.KERNELS)
+        for k, n in launches.items():
+            phase_launches[k] += n
+        found = eval_problems(res, launches, path, absent, VARIANT_FRAMES,
+                              REF_VARIANT_ACCURACY[v], 1)
+        if export:
+            found += exported_pose_problems(res, pose_dir)
+        problems += [f"{v}: {x}" for x in found]
+        variants[v] = {"seconds": seconds, "launches": launches,
+                       "peak_memory_bytes": peak, "tag": res["tag"],
+                       "accuracy_5cm5deg": res["accuracy_5cm5deg"],
+                       "reference_accuracy": REF_VARIANT_ACCURACY[v],
+                       **({"export_check": res["export_check"]}
+                          if "export_check" in res else {})}
+    by_phase["test_ransac_variants"] = phase_launches
+    for k, n in phase_launches.items():
+        total[k] += n
+    emit({"phase": "test_ransac_variants", "frames": VARIANT_FRAMES,
+          "launches": phase_launches, "variants": variants})
+    if problems:
+        print("chip_smoke: test_ransac_variants failed: "
+              + "; ".join(problems), file=sys.stderr)
+        return 1
+
     for name, fn in (("train_grad", lambda: train_grad(dev)),
                      ("train_ransac", lambda: train_phase(False)),
                      ("train_ransac_softam", lambda: train_phase(True))):
@@ -1197,11 +1385,20 @@ def main() -> int:
 
     emit({"phase": "summary",
           "reloc_per_s": {k: results[k]["reloc_per_s"]
-                          for k in ("serve", "serve_cnn", "serve_fixed_t")},
-          "accuracy_5cm5deg": {k: results[k]["accuracy_5cm5deg"]
-                               for k in results},
+                          for k in ("serve", "serve_cnn", "serve_fixed_t",
+                                    "serve_softam", "serve_softam_cnn")},
+          "accuracy_5cm5deg": {
+              **{k: results[k]["accuracy_5cm5deg"] for k in results},
+              **{f"test_ransac_{v}": x["accuracy_5cm5deg"]
+                 for v, x in variants.items()}},
           "test_ransac_accuracy_select_inlier": inlier["accuracy_5cm5deg"],
-          "reference_test_ransac_accuracy": REF_TEST_RANSAC_ACCURACY})
+          "reference_accuracy": {
+              "test_ransac": REF_TEST_RANSAC_ACCURACY,
+              "serve_softam": REF_SERVE_SOFTAM_ACCURACY,
+              "serve_softam_cnn": REF_SERVE_SOFTAM_CNN_ACCURACY,
+              "test_ransac_softam": REF_TEST_RANSAC_SOFTAM_ACCURACY,
+              **{f"test_ransac_{v}": x
+                 for v, x in REF_VARIANT_ACCURACY.items()}}})
 
     for row in rows:
         row["launches"] = total[row["name"]]

@@ -23,13 +23,15 @@ Layer map (mirrors ``dsac_tpu``):
   models/       DenseCoordNet and ScoreNet (bf16 convolutions, f32
                 master weights)
   data/         the default synthetic room, rendered on the device, and
-                its random training views
+                its random training views; 7-Scenes pose files
   pipeline/     batched DSAC and SoftAM forward passes and their refine
-                modes, evaluation, end-to-end training
-  utils/        npz weights (read and write), snapshots, training logs,
-                timing on the card
-  cli/          serve, profile_serve, test_ransac, train_ransac,
-                train_ransac_softam
+                modes (the hard-threshold one too), evaluation, end-to-end
+                training
+  utils/        npz weights (read and write), snapshots, training and
+                evaluation logs, timing on the card
+  cli/          serve, profile_serve, profile_kernels, test_ransac,
+                test_ransac_softam, train_ransac, train_ransac_softam,
+                and their model selection (common)
 """
 
 __version__ = "0.1.0"

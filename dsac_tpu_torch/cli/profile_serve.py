@@ -1,7 +1,8 @@
 """Where the time goes on the card: for one serve batch of 8 frames at
-the bench configuration (256 hypotheses, 16 attempts, verify_topk 4),
-with fused soft-inlier scoring or, with ``--no-fused-scoring``, the
-diff-map kernel and the score CNN; or, with ``--train dsac|softam``, for
+the bench configuration (256 hypotheses, 16 attempts, verify_topk 4, or
+with ``--softam`` the soft-argmax average refined), with fused
+soft-inlier scoring or, with ``--no-fused-scoring``, the diff-map kernel
+and the score CNN; or, with ``--train dsac|softam``, for
 one end-to-end training round of ``train_ransac`` at the reference's
 configuration (DenseCoordNet 64 on 640x480, ScoreNet 1.0, 256 hypotheses
 of 16 attempts, refine mode ``implicit``) from the trained weights of
@@ -24,6 +25,7 @@ Prints one JSON line (and writes it to ``--out`` when given).
 
     python -m dsac_tpu_torch.cli.profile_serve --steps 8
     python -m dsac_tpu_torch.cli.profile_serve --steps 8 --no-fused-scoring
+    python -m dsac_tpu_torch.cli.profile_serve --steps 8 --softam
     python -m dsac_tpu_torch.cli.profile_serve --steps 4 --train softam
 """
 
@@ -132,6 +134,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default=None, help="also write the line here")
     ap.add_argument("--fused-scoring", action=argparse.BooleanOptionalAction,
                     default=True)
+    ap.add_argument("--softam", action="store_true",
+                    help="serve the soft-argmax variant (its artifacts)")
     ap.add_argument("--train", choices=("dsac", "softam"), default=None,
                     help="profile a training round of this objective")
     args = ap.parse_args(argv)
@@ -153,7 +157,8 @@ def serve_batch(args) -> dict:
     st = serve.stage(serve.parse_args([
         "--synthetic", str(BATCH), "--batch", str(BATCH), "--queue", "1",
         "--device", "cuda"] + ([] if args.fused_scoring
-                               else ["--no-fused-scoring"])))
+                               else ["--no-fused-scoring"])
+        + (["--softam"] if args.softam else [])))
     imgs = st.images[0]
     B, H, W = imgs.shape[:3]
 
@@ -182,6 +187,7 @@ def serve_batch(args) -> dict:
         "metric": "serve_batch_breakdown",
         "device": torch.cuda.get_device_name(0),
         "scoring": "fused_soft" if args.fused_scoring else "cnn",
+        "variant": "softam" if args.softam else "dsac",
         "batch": B, "steps": args.steps,
         "batch_ms": batch_ms,
         "reloc_per_s": B / batch_ms * 1e3,

@@ -4,24 +4,40 @@ single-chip path).
 Renders ``--synthetic N`` frames of the default room at the bench poses
 (data/room_default.json, the ground truth), stages a queue of
 ``--queue`` batches of ``--batch`` frames on the device, and serves them:
-DenseCoordNet (weights from ``--weights``) -> P3P sampling of 256
-hypotheses with ``--attempts`` attempts (two-phase, or fixed-T through
-the P3P kernel with ``--no-two-phase``) -> scores (the fused soft-inlier
-kernel, or with ``--no-fused-scoring`` the diff-map kernel and the score
-CNN of ``--score-weights``) -> argmax -> fused IRLS refinement of the top
-``--verify-topk``.  One warm-up pass over the queue, then ``--reps`` timed
-passes.
+DenseCoordNet -> P3P sampling of 256 hypotheses with ``--attempts``
+attempts (two-phase, re-solving ``--two-phase-budget`` of the pool in
+phase 2, or fixed-T through the P3P kernel with ``--no-two-phase``) ->
+scores (the fused soft-inlier kernel, or with ``--no-fused-scoring`` the
+diff-map kernel and the score CNN, or the soft-inlier head with ``--model
+none``) -> argmax -> refinement of the top ``--verify-topk`` (the fused
+refine kernel, or the PyTorch IRLS with ``--no-fused-refine``).
+``--softam`` serves the soft-argmax variant instead, with the same
+kernels: the softmax average of the pool, refined alone (``--verify-topk``
+does not apply).  The nets come from ``--model`` (cli/common.py): without
+``--out``, the committed artifacts (``*_softam.npz`` with ``--softam``).
+One warm-up pass over the queue, then ``--reps`` timed passes;
+``--export-poses DIR`` writes the last pass's pose of each distinct frame
+as a 7-Scenes pose file.
+
+The defaults are bench.py's, not the reference serve's: fused scoring,
+two-phase sampling, ``--verify-topk 4`` and argmax here, where
+dsac_tpu/cli/serve.py defaults to the score CNN, fixed-T sampling, the
+winner alone and PoseConfig.random_draw.  ``--two-phase-sampling`` is
+the reference's name of ``--two-phase``.
 
 Prints one JSON line: throughput, accuracy at 5 cm / 5 deg of the last
-pass's poses, median errors, and each kernel's launch count.
+pass's poses, median errors, and each kernel's launch count; with
+``--softam`` also ``"variant": "softam"``.
 
     python -m dsac_tpu_torch.cli.serve --synthetic 64 --queue 8 --batch 8
     python -m dsac_tpu_torch.cli.serve --no-fused-scoring
+    python -m dsac_tpu_torch.cli.serve --softam
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -30,7 +46,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from dsac_tpu_torch import resolve_device
+from dsac_tpu_torch.cli.common import add_model_args, load_eval_models
 from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
+from dsac_tpu_torch.data.seven_scenes import write_pose_file
 from dsac_tpu_torch.data.synthetic import SyntheticScene
 from dsac_tpu_torch.geometry.loss import is_correct, pose_errors
 from dsac_tpu_torch.geometry.pose import Pose
@@ -42,10 +60,8 @@ from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine, irls_stats,
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve
 from dsac_tpu_torch.pipeline.forward import (FrameResult,
                                              process_frames_batched)
-from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
-                                            load_score_net_npz)
+from dsac_tpu_torch.utils.logging import blue
 
-REPO = Path(__file__).resolve().parents[2]
 # name -> wrapper, each with its count of launches; the last is the refine
 # kernel's launches from the init-pose backward (training)
 KERNELS = {"p3p": p3p_solve, "soft_inlier_score": soft_inlier_scores,
@@ -60,25 +76,45 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="distinct fixture frames to serve (at most 64)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--queue", type=int, default=8)
-    ap.add_argument("--verify-topk", type=int, default=4)
+    ap.add_argument("--softam", action="store_true",
+                    help="serve the soft-argmax variant (the softmax "
+                         "average of the pool, refined alone; "
+                         "cnn_softam.h:960-1180) with the same kernels")
+    ap.add_argument("--verify-topk", type=int, default=None,
+                    help="refine the K best-scored hypotheses and serve "
+                         "the one with the most inliers (default 4; 0 "
+                         "with --softam, where it does not apply)")
     ap.add_argument("--attempts", type=int, default=16)
+    ap.add_argument("--two-phase-budget", type=float, default=None,
+                    help="share of the pool re-solved at full depth in "
+                         "phase 2 (PoseConfig.two_phase_budget, 0.125)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--weights", default=str(REPO / "artifacts" /
-                                             "coord_e2e.npz"))
-    ap.add_argument("--score-weights", default=str(REPO / "artifacts" /
-                                                   "score_e2e.npz"),
-                    help="score CNN weights (with --no-fused-scoring)")
+    add_model_args(ap)
     ap.add_argument("--fused-scoring", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="score with the fused soft-inlier kernel; off: "
                          "the diff-map kernel and the score CNN")
-    ap.add_argument("--two-phase", action=argparse.BooleanOptionalAction,
-                    default=True,
+    ap.add_argument("--two-phase", "--two-phase-sampling",
+                    action=argparse.BooleanOptionalAction, default=True,
                     help="two-phase sampling; off: fixed-T sampling "
                          "through the P3P kernel")
+    ap.add_argument("--fused-refine", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="refine with the fused refine kernel; off: the "
+                         "PyTorch IRLS")
+    ap.add_argument("--export-poses", default=None,
+                    help="write the served pose of each distinct frame as "
+                         "a 7-Scenes pose file frame-NNNNNN.pose.txt here")
     ap.add_argument("--seed", type=int, default=0)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.softam and args.verify_topk:
+        print(blue("NOTE: --verify-topk is a no-op with --softam (the "
+                   "soft-argmax average IS the served pose; there is no "
+                   "pool selection to verify)."))
+    if args.verify_topk is None or args.softam:
+        args.verify_topk = 0 if args.softam else 4
+    return args
 
 
 class Staged(NamedTuple):
@@ -88,7 +124,7 @@ class Staged(NamedTuple):
     images: torch.Tensor  # (Q, B, H, W, 3) RGB in [0, 255]
     gt: Pose  # (Q * B,) ground-truth scene -> eye poses
     net: DenseCoordNet
-    score_net: ScoreNet | None  # with --no-fused-scoring
+    score_net: ScoreNet | None  # with --no-fused-scoring and a score CNN
     serve_batch: Callable[[torch.Tensor], FrameResult]
 
 
@@ -102,12 +138,15 @@ def stage(args: argparse.Namespace) -> Staged:
     if not 1 <= args.synthetic <= n_poses:
         raise SystemExit(f"--synthetic must be in 1..{n_poses}")
     cam = data.camera()
-    cfg = DSACConfig(data=data, pose=PoseConfig(
-        num_hypotheses=256, random_draw=False,
-        sample_attempts=args.attempts))
-    net = load_coord_net_npz(args.weights, device)
-    score_net = (None if args.fused_scoring
-                 else load_score_net_npz(args.score_weights, device))
+    pose = PoseConfig(num_hypotheses=256, random_draw=False,
+                      sample_attempts=args.attempts)
+    if args.two_phase_budget is not None:
+        pose = dataclasses.replace(pose,
+                                   two_phase_budget=args.two_phase_budget)
+    cfg = DSACConfig(data=data, pose=pose)
+    models = load_eval_models(args, cfg, device, args.softam,
+                              score_cnn=not args.fused_scoring)
+    net = models.coord_net
 
     B, Q = args.batch, args.queue
     frame = torch.arange(B * Q, device=device) % args.synthetic
@@ -128,10 +167,11 @@ def stage(args: argparse.Namespace) -> Staged:
             imgs, coord_fn, cam, cfg, verify_topk=args.verify_topk,
             generator=gen,
             scoring="fused_soft" if args.fused_scoring else "cnn",
-            score_fn=score_net,
-            sampling="two_phase" if args.two_phase else True)
+            score_fn=models.score_fn,
+            sampling="two_phase" if args.two_phase else True,
+            fused_refine=args.fused_refine, softam=args.softam)
 
-    return Staged(device, images, gt, net, score_net, serve_batch)
+    return Staged(device, images, gt, net, models.score_net, serve_batch)
 
 
 def main(argv=None) -> dict:
@@ -162,6 +202,12 @@ def main(argv=None) -> dict:
                 out = serve_queue()
             seconds = time.perf_counter() - t0
 
+    if args.export_poses:
+        pose_dir = Path(args.export_poses)
+        pose_dir.mkdir(parents=True, exist_ok=True)
+        for i in range(min(args.synthetic, Q * B)):  # the distinct frames
+            write_pose_file(pose_dir / f"frame-{i:06d}.pose.txt",
+                            out.R[i].cpu().numpy(), out.t[i].cpu().numpy())
     rot, trans = pose_errors(out, st.gt)
     correct = is_correct(out, st.gt)
     result = {
@@ -172,9 +218,12 @@ def main(argv=None) -> dict:
         "median_trans_mm": float(trans.median()),
         "poses_finite": bool(torch.isfinite(out.R).all()
                              and torch.isfinite(out.t).all()),
+        **({"variant": "softam"} if args.softam else {}),
+        "model": args.model,
         "scoring": "fused_soft" if args.fused_scoring else "cnn",
         "sampling": "two_phase" if args.two_phase else "fixed_t_fused",
         "batch": B, "queue": Q, "verify_topk": args.verify_topk,
+        "fused_refine": args.fused_refine,
         "attempts": args.attempts, "reps": args.reps,
         "frames": args.synthetic,
         "device": (torch.cuda.get_device_name(device)

@@ -1,29 +1,42 @@
-"""Evaluation over the fixture frames (port of dsac_tpu/cli/test_ransac.py,
-single device, without ``--mesh``).
+"""Evaluation over the fixture frames (port of dsac_tpu/cli/test_ransac.py
+and test_ransac_softam.py, single device, without ``--mesh``).
 
 Renders ``--synthetic N`` frames of the default room at the bench poses
 (data/room_default.json, the ground truth) and runs the reference's
-test_ransac forward pass on each frame: DenseCoordNet (``--weights``) ->
-fixed-T sampling of 256 hypotheses with 16 attempts, every attempt
-polished by the PyTorch P3P solver -> the diff-map kernel and the
-score CNN (``--score-weights``) -> refinement of the whole pool (one
+test_ransac forward pass on each frame: DenseCoordNet -> fixed-T sampling
+of 256 hypotheses with 16 attempts, every attempt polished by the PyTorch
+P3P solver -> the diff-map kernel and the score CNN (or, with
+``--model none``, the soft-inlier head; with ``--fused-scoring``, the
+score kernel and no score CNN) -> refinement of the whole pool (one
 launch of the refine kernel with ``--fused-refine``, else the PyTorch
-IRLS) -> the winner: drawn from the score softmax (``--rdraw 1``) or its
-argmax (``--rdraw 0``), or with ``--select inlier`` the refined
-hypothesis with the largest inlier count.  Frame i draws from a generator
-seeded with ``--seed * 131 + i``, as the reference keys it.
+IRLS; with ``--refine-variant hard``, the hard-threshold ablation in
+PyTorch) -> the winner: drawn from the score softmax (``--rdraw 1``) or
+its argmax (``--rdraw 0``), or with ``--select inlier`` the refined
+hypothesis with the largest inlier count.  ``--softam`` (or
+``test_ransac_softam``) evaluates the soft-argmax variant instead: the
+softmax average of the pool, refined alone; as in the reference it
+ignores ``--fused-scoring``, ``--refine-variant hard`` and ``--select
+inlier``.  Frame i draws from a generator seeded with
+``--seed * 131 + i``, as the reference keys it.
 
-``--check-refine`` (with ``--fused-refine``) also refines each pool with
-``refine_pose_fused_steps`` (one launch of the IRLS-statistics kernel per
-step) and reports, over the frames, the largest gap to the single-launch
-refine kernel at the served hypothesis.
+The nets come from ``--model`` (cli/common.py): without ``--out``, the
+committed artifacts.  With ``--out``, the per-frame log and the summary
+(utils/logging.py:TestLog) are written there, under the reference's tag.
+``--export-poses DIR`` writes each served pose as a 7-Scenes pose file.
+
+``--check-refine`` (with ``--fused-refine``, DSAC, soft refinement) also
+refines each pool with ``refine_pose_fused_steps`` (one launch of the
+IRLS-statistics kernel per step) and reports, over the frames, the
+largest gap to the single-launch refine kernel at the served hypothesis.
 
 Prints one JSON line: the reference's summary (accuracy at 5 cm / 5 deg,
 median errors, mean and spread of the expected loss and of the entropy),
-each kernel's launch count, and the seconds the frames took (rendering
-included, the model's loading not).
+the variant and tag, each kernel's launch count, and the seconds the
+frames took (rendering included, the model's loading not).  ``main``
+returns that line's dict and, under ``"final"``, the served poses.
 
     python -m dsac_tpu_torch.cli.test_ransac --synthetic 64 --fused-refine
+    python -m dsac_tpu_torch.cli.test_ransac_softam --fused-refine
 """
 
 from __future__ import annotations
@@ -37,27 +50,39 @@ import numpy as np
 import torch
 
 from dsac_tpu_torch import resolve_device
+from dsac_tpu_torch.cli.common import add_model_args, load_eval_models
 from dsac_tpu_torch.cli.serve import KERNELS
 from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
+from dsac_tpu_torch.data.seven_scenes import (pose_to_7scenes_vec6,
+                                              write_pose_file)
 from dsac_tpu_torch.data.synthetic import SyntheticScene
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.models.coord_net import gather_dense_coords
 from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused_steps
 from dsac_tpu_torch.pipeline import (evaluate_frame, process_frames_batched,
                                      summarize, verified_selection)
-from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
-                                            load_score_net_npz)
-
-REPO = Path(__file__).resolve().parents[2]
+from dsac_tpu_torch.utils.logging import TestLog, green, red
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--synthetic", type=int, default=64,
                     help="fixture frames to evaluate (at most 64)")
+    ap.add_argument("--softam", action="store_true", default=softam,
+                    help="the soft-argmax variant (test_ransac_softam); "
+                         "ignores --fused-scoring, --refine-variant hard "
+                         "and --select inlier, as the reference does")
     ap.add_argument("--fused-refine", action="store_true",
-                    help="refine the pool with the fused refine kernel "
-                         "(one launch a frame); default: the PyTorch IRLS")
+                    help="refine with the fused refine kernel (one launch "
+                         "a frame); default: the PyTorch IRLS")
+    ap.add_argument("--refine-variant", choices=["soft", "hard"],
+                    default="soft",
+                    help="hard: the reference's hard-threshold refinement "
+                         "with the rB = 100 cap and the abort below 50 "
+                         "inliers, in PyTorch (core/cnn.h:1186-1204)")
+    ap.add_argument("--fused-scoring", action="store_true",
+                    help="score with the fused soft-inlier kernel (no "
+                         "score CNN, no diff-maps)")
     ap.add_argument("--select", choices=["score", "inlier"], default="score",
                     help="winner: the pre-refinement score draw or argmax, "
                          "or the largest post-refinement inlier count")
@@ -67,13 +92,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--check-refine", action="store_true",
                     help="with --fused-refine: also refine each pool "
                          "stepwise and report the gap")
+    ap.add_argument("--export-poses", default=None,
+                    help="write each served pose as a 7-Scenes pose file "
+                         "frame-NNNNNN.pose.txt under this directory")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--weights", default=str(REPO / "artifacts" /
-                                             "coord_e2e.npz"))
-    ap.add_argument("--score-weights", default=str(REPO / "artifacts" /
-                                                   "score_e2e.npz"))
+    add_model_args(ap)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
+
+
+def eval_tag(args: argparse.Namespace, coord_src: str, H: int) -> str:
+    """The reference's file tag (test_ransac.py:95-103)."""
+    variant = "softam" if args.softam else "dsac"
+    tag = f"{variant}_dense_{coord_src}_rdraw{args.rdraw}"
+    if not args.softam:
+        if args.select == "inlier":
+            tag += "_selinlier"
+        if args.refine_variant == "hard":
+            tag += "_hardref"
+        if args.fused_scoring:
+            tag += f"_fusedscore_h{H}"
+    return tag
 
 
 def check_refine(res, cam, p: PoseConfig) -> tuple[float, float]:
@@ -90,10 +129,14 @@ def check_refine(res, cam, p: PoseConfig) -> tuple[float, float]:
             float((steps.R - res.refined.R)[0, c].abs().max()))
 
 
-def main(argv=None) -> dict:
-    args = parse_args(argv)
-    if args.check_refine and not args.fused_refine:
-        raise SystemExit("--check-refine needs --fused-refine")
+def main(argv=None, softam: bool = False) -> dict:
+    args = parse_args(argv, softam)
+    dsac = not args.softam
+    hard = dsac and args.refine_variant == "hard"
+    fused_scoring = dsac and args.fused_scoring
+    if args.check_refine and not (args.fused_refine and dsac and not hard):
+        raise SystemExit("--check-refine needs --fused-refine, DSAC and "
+                         "--refine-variant soft")
     device = resolve_device(args.device)
     data = DataConfig()
     scene = SyntheticScene(data.image_width, data.image_height,
@@ -105,13 +148,21 @@ def main(argv=None) -> dict:
     cfg = DSACConfig(data=data, pose=PoseConfig(
         num_hypotheses=256, random_draw=bool(args.rdraw)))
     p = cfg.pose
-    net = load_coord_net_npz(args.weights, device)
-    score_net = load_score_net_npz(args.score_weights, device)
+    models = load_eval_models(args, cfg, device, args.softam,
+                              score_cnn=not fused_scoring)
+    net = models.coord_net
 
     def coord_fn(imgs, pix):
         return gather_dense_coords(net(imgs), pix, stride=8)
 
+    tag = eval_tag(args, models.coord_src, p.num_hypotheses)
+    log = TestLog(args.out, tag) if args.out else None
+    if args.export_poses:
+        pose_dir = Path(args.export_poses)
+        pose_dir.mkdir(parents=True, exist_ok=True)
+
     rots, trans, exps, ents, winners, checks = [], [], [], [], [], []
+    served = []
     t0 = time.perf_counter()
     with torch.no_grad():
         for i in range(args.synthetic):
@@ -121,30 +172,50 @@ def main(argv=None) -> dict:
             gen = torch.Generator(device=device).manual_seed(
                 args.seed * 131 + i)
             res = process_frames_batched(
-                image, coord_fn, cam, cfg, generator=gen, scoring="cnn",
-                score_fn=score_net, sampling=False, refine_all=True,
-                fused_refine=args.fused_refine)
-            if args.select == "inlier":
+                image, coord_fn, cam, cfg, generator=gen,
+                scoring="fused_soft" if fused_scoring else "cnn",
+                score_fn=models.score_fn, sampling=False, refine_all=True,
+                fused_refine="hard" if hard else args.fused_refine,
+                softam=args.softam)
+            if dsac and args.select == "inlier":
                 res = verified_selection(res)
             ev = evaluate_frame(res, gt)
-            rots.append(float(ev.rot_err_deg[0]))
-            trans.append(float(ev.trans_err_mm[0]))
+            rot, te = float(ev.rot_err_deg[0]), float(ev.trans_err_mm[0])
+            rots.append(rot)
+            trans.append(te)
             exps.append(float(ev.expected_loss[0]))
             ents.append(float(ev.entropy[0]))
             winners.append(float(ev.losses[0, int(res.chosen[0])]))
+            served.append(Pose(res.final.R[0].cpu(), res.final.t[0].cpu()))
+            R, t = served[-1].R.numpy(), served[-1].t.numpy()
+            if log is not None:
+                log.frame(exps[-1], ents[-1], winners[-1], te, rot,
+                          pose_to_7scenes_vec6(R, t))
+            if args.export_poses:
+                write_pose_file(pose_dir / f"frame-{i:06d}.pose.txt", R, t)
             if args.check_refine:
                 checks.append(check_refine(res, cam, p))
+            colour = green if (rot < 5.0 and te < 50.0) else red
+            print(colour(f"frame {i}: rot {rot:.2f} deg, trans {te:.1f} mm"))
 
     seconds = time.perf_counter() - t0  # each frame ends in a host read
     stats = summarize(np.asarray(rots), np.asarray(trans), np.asarray(exps),
                       np.asarray(ents))
+    if log is not None:
+        log.summary(stats)
+        log.close()
     result = {
         "metric": "test_ransac",
         **stats,
         "mean_winner_loss": float(np.mean(winners)),
         "all_finite": bool(np.isfinite([rots, trans, exps, ents]).all()),
-        "select": args.select, "rdraw": args.rdraw,
-        "fused_refine": args.fused_refine,
+        "variant": "softam" if args.softam else "dsac", "tag": tag,
+        "model": args.model, "coord_src": models.coord_src,
+        "score_src": models.score_src,
+        "scoring": "fused_soft" if fused_scoring else "cnn",
+        "refine_variant": "hard" if hard else "soft",
+        "select": args.select if dsac else "softam_average",
+        "rdraw": args.rdraw, "fused_refine": args.fused_refine,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "launches": {name: fn.launches for name, fn in KERNELS.items()},
@@ -154,7 +225,12 @@ def main(argv=None) -> dict:
         result["refine_check"] = {
             "served_max_abs_dt_mm": max(c[0] for c in checks),
             "served_max_abs_dR": max(c[1] for c in checks)}
+    if args.export_poses:
+        result["exported_poses"] = str(pose_dir)
     print(json.dumps(result), flush=True)
+    # returned beside the printed line: the served poses (N,)
+    result["final"] = Pose(torch.stack([x.R for x in served]),
+                           torch.stack([x.t for x in served]))
     return result
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import sys
 import time
 from pathlib import Path
 
@@ -77,7 +78,8 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=1305)
     ap.add_argument("--out", default="./out")
     ap.add_argument("--device", default="cuda")
-    refused = [a for a in (argv or []) if a.split("=")[0] in NOT_PORTED]
+    given = sys.argv[1:] if argv is None else argv
+    refused = [a for a in given if a.split("=")[0] in NOT_PORTED]
     if refused:
         raise SystemExit(f"{', '.join(refused)}: not ported to "
                          "dsac_tpu_torch (ROADMAP.md)")

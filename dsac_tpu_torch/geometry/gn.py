@@ -5,11 +5,17 @@ dsac_tpu/geometry/gn.py).
 Gauss-Newton steps each.  With ``inner_iters=1`` and ``steps`` the
 kernel's step count it is the plain version of the fused refine kernel
 (ops/gn_cuda.py), step for step; the reference's 8 x 2 nest reaches the
-same fixed point by another path.  ``implicit_refine_step`` is the
-differentiable step that training takes from a fixed point.
+same fixed point by another path.  ``refine_pose_hard`` is the
+reference's hard-threshold ablation (evaluation only).
+``implicit_refine_step`` is the differentiable step that training takes
+from a fixed point.
 """
 
 from __future__ import annotations
+
+import functools
+import json
+from pathlib import Path
 
 import torch
 
@@ -18,6 +24,13 @@ from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.geometry.rotation import hat, so3_exp
 
 _EPS = 1e-8
+
+# The reference caps each hard re-solve at the first inliers in the order of
+# jax.random.permutation(PRNGKey(0), N), which PyTorch cannot draw: the
+# order of N = 1600 (a 40 x 40 grid) is committed as data, written from the
+# reference by tests/test_torch_synthetic.py.
+PERM_FIXTURE = (Path(__file__).resolve().parents[1] / "data"
+                / "hard_refine_perm.json")
 
 
 def solve6_cholesky(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -140,6 +153,67 @@ def refine_pose(pose: Pose, obj: torch.Tensor, pix: torch.Tensor,
         p = Pose(torch.where(keep[..., None, None], new_p.R, p.R),
                  torch.where(keep[..., None], new_p.t, p.t))
     return p, n_in
+
+
+@functools.lru_cache(maxsize=None)
+def _committed_permutation(n: int) -> torch.Tensor:
+    fx = json.loads(PERM_FIXTURE.read_text())
+    if len(fx["perm"]) != n:
+        raise ValueError(f"the committed permutation is of "
+                         f"{len(fx['perm'])} points, not {n}: pass perm")
+    return torch.tensor(fx["perm"], dtype=torch.int64)
+
+
+def hard_permutation(n: int, device: torch.device | str = "cpu"
+                     ) -> torch.Tensor:
+    """The reference's point order of the hard refinement's cap,
+    jax.random.permutation(PRNGKey(0), n), for the committed n."""
+    return _committed_permutation(n).to(device)
+
+
+def refine_pose_hard(pose: Pose, obj: torch.Tensor, pix: torch.Tensor,
+                     cam: Camera, steps: int = 8, inner_iters: int = 2,
+                     threshold: float = 10.0, inlier_cap: int = 100,
+                     min_inliers: float = 50.0, damping: float = 1e-4,
+                     max_error: float = 100.0,
+                     perm: torch.Tensor | None = None
+                     ) -> tuple[Pose, torch.Tensor]:
+    """Hard-threshold refinement with capped re-solves (gn.py:193-247,
+    the reference's inlier policy, core/cnn.h:1186-1204).
+
+    A point is an inlier iff its clamped reprojection error is below
+    ``threshold``; each of the ``inner_iters`` GN steps of an outer step
+    sees only the first ``inlier_cap`` inliers in the order ``perm`` (N,)
+    (default: ``hard_permutation``), at weight 1; a pose freezes for good
+    once fewer than ``min_inliers`` points are inliers.  No gradient is
+    meant to pass: the gates are hard.  Returns (refined pose, hard inlier
+    count at the pose that entered the last step, f32).
+    """
+    if perm is None:
+        perm = hard_permutation(obj.shape[-2], obj.device)
+    inv = torch.argsort(perm)
+    p = pose
+    alive = torch.ones(pose.t.shape[:-1], dtype=torch.bool,
+                       device=pose.t.device)
+    n_in = None
+    for _ in range(steps):
+        r, _J = _residuals_and_jac(p, obj, pix, cam)
+        err = torch.clamp(torch.sqrt(torch.sum(r * r, dim=-1) + _EPS),
+                          max=max_error)
+        inl = err < threshold
+        n_in = torch.sum(inl, dim=-1)
+        alive = alive & (n_in >= min_inliers)
+        inl_p = inl[..., perm]
+        csum = torch.cumsum(inl_p.to(torch.int32), dim=-1)
+        w = (inl_p & (csum <= inlier_cap))[..., inv].to(obj.dtype)
+        new_p = gn_pnp(p, obj, pix, w, cam, iters=inner_iters,
+                       damping=damping)
+        ok = (torch.isfinite(new_p.R).all(dim=(-2, -1))
+              & torch.isfinite(new_p.t).all(dim=-1))
+        keep = alive & ok
+        p = Pose(torch.where(keep[..., None, None], new_p.R, p.R),
+                 torch.where(keep[..., None], new_p.t, p.t))
+    return p, n_in.to(torch.float32)
 
 
 def implicit_refine_step(pose_star: Pose, obj: torch.Tensor,

@@ -25,6 +25,7 @@ STEPS = 16
 # The refine kernel's regimes on the main path: (frames, poses a frame).
 REFINE_REGIMES = {
     "softam_forward": (1, 1),  # SoftAM's averaged pose
+    "softam_serve": (FRAMES, 1),  # a SoftAM serve batch's 8 averages
     "softam_backward": (1, 12),  # the 12 probes of its init-pose backward
     "serve_top4": (FRAMES, TOPK),  # a serve batch's verified top 4
     "test_ransac": (1, HYPS),  # refine-all of one frame; a DSAC round

@@ -57,6 +57,7 @@ def test_refine_layouts_are_legal(N, sm_count):
 
 @pytest.mark.parametrize("num_poses, P, want", [
     (1, 1, RefineLayout(8, 1, 4)),       # SoftAM's averaged pose
+    (8, 1, RefineLayout(8, 1, 4)),       # a SoftAM serve batch's averages
     (12, 12, RefineLayout(8, 1, 4)),     # its backward's 12 probes
     (32, 4, RefineLayout(8, 1, 4)),      # serve top 4 of 8 frames
     (256, 256, RefineLayout(1, 1, 8)),   # refine-all of a frame

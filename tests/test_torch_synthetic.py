@@ -3,8 +3,11 @@
 The texture parameters and bench poses come from jax.random, so the port
 reads them from a fixture (dsac_tpu_torch/data/room_default.json); this
 file regenerates them from the reference and holds the fixture to them
-(1e-6: the fixture stores the reference's f32 values in full).  Running it
-as a script rewrites the fixture:
+(1e-6: the fixture stores the reference's f32 values in full).  It also
+holds the port's committed point order of the hard refinement's cap
+(dsac_tpu_torch/data/hard_refine_perm.json) to the reference's
+jax.random.permutation(PRNGKey(0), 1600), exactly.  Running it as a script
+rewrites both files:
 
     python tests/test_torch_synthetic.py
 """
@@ -19,9 +22,11 @@ import torch
 
 from dsac_tpu.data.synthetic import SyntheticScene as JaxScene
 from dsac_tpu_torch.data.synthetic import FIXTURE, SyntheticScene
+from dsac_tpu_torch.geometry.gn import PERM_FIXTURE, hard_permutation
 from dsac_tpu_torch.geometry.pose import Pose
 
 N_BENCH = 64  # bench.py serves keys 9000 .. 9063 (queue 8 x batch 8)
+N_PIXELS = 1600  # the 40 x 40 grid of NetConfig.subsample_size
 
 
 def reference_fixture() -> dict:
@@ -52,6 +57,22 @@ def test_fixture_matches_reference():
             np.testing.assert_allclose(np.asarray(got[group][k]),
                                        np.asarray(v), rtol=0, atol=1e-6,
                                        err_msg=f"{group}.{k}")
+
+
+def reference_permutation() -> dict:
+    """The point order of dsac_tpu/geometry/gn.py:refine_pose_hard's cap
+    at its default key (gn.py:222-223)."""
+    perm = jax.random.permutation(jax.random.PRNGKey(0), N_PIXELS)
+    return {"source": "jax.random.permutation(jax.random.PRNGKey(0), 1600) "
+                      "(dsac_tpu/geometry/gn.py:refine_pose_hard); written "
+                      "by tests/test_torch_synthetic.py",
+            "perm": np.asarray(perm).astype(int).tolist()}
+
+
+def test_hard_permutation_matches_reference():
+    ref = reference_permutation()["perm"]
+    assert json.loads(PERM_FIXTURE.read_text())["perm"] == ref
+    assert hard_permutation(N_PIXELS).tolist() == ref
 
 
 def test_bench_poses_are_the_reference_frames():
@@ -100,4 +121,7 @@ def test_render_is_device_agnostic_and_finite():
 if __name__ == "__main__":
     out = Path(sys.argv[1]) if len(sys.argv) > 1 else FIXTURE
     out.write_text(json.dumps(reference_fixture()) + "\n")
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+    out = out.with_name(PERM_FIXTURE.name)
+    out.write_text(json.dumps(reference_permutation()) + "\n")
     print(f"wrote {out} ({out.stat().st_size} bytes)")

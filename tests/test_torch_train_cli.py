@@ -106,6 +106,18 @@ def test_flags_not_ported_are_refused(tmp_path):
             run(tmp_path, 1, *flag)
 
 
+@pytest.mark.parametrize("softam", [False, True], ids=["dsac", "softam"])
+def test_flags_not_ported_are_refused_from_the_shell(monkeypatch, softam):
+    """From the shell main() gets argv=None and reads sys.argv: the refused
+    flag gets the "not ported" message, not argparse's rejection."""
+    main = train_ransac_softam.main if softam else train_ransac.main
+    monkeypatch.setattr("sys.argv", ["train_ransac", "--mesh", "1x2"])
+    with pytest.raises(SystemExit) as exc:
+        main()
+    assert str(exc.value) == ("--mesh: not ported to dsac_tpu_torch "
+                              "(ROADMAP.md)")
+
+
 def test_checkpoint_keeps_the_newest_and_writes_atomically(tmp_path):
     for step in range(5):
         ckpt.save(tmp_path, "x", {"step": step, "w": torch.ones(2) * step},
