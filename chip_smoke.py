@@ -87,21 +87,42 @@ stopped):
                   DSAC training in refine mode "implicit" from the trained
                   weights, written as the port's obj_model_init and
                   score_model_init snapshots into a fresh runs/ directory;
-14. train_ransac_softam  the same with the SoftAM objective.
+14. train_ransac_softam  the same with the SoftAM objective;
+15. serve_s2d     serve --arch dense_s2d on the 64 fixture frames (queue 8
+                  x batch 8, fused soft, two-phase, verify_topk 4, one
+                  timed pass) with artifacts/coord_e2e_s2d.npz;
+16. serve_patch   the same with --arch patch: the patch net of
+                  artifacts/coord_e2e_patch.npz on the 12,800 patches of a
+                  batch;
+17. serve_patch_cnn  --arch patch --no-fused-scoring: the diff-map kernel
+                  and artifacts/score_e2e_patch.npz;
+18. test_ransac_patch  test_ransac --arch patch --fused-refine --rdraw 0
+                  on 16 frames: the diff-map and refine kernels once a
+                  frame;
+19. serve_ctx     serve --arch dense_ctx on 16 frames (queue 2 x batch 8)
+                  with --out on an empty run directory: a fresh init of
+                  width 64 (no weights are committed), so no accuracy bar:
+                  every pose and score must be finite;
+20. train_arch    2 rounds each of train_ransac --arch patch and --arch
+                  dense_s2d (DSAC, refine mode "implicit"), from the
+                  committed weights written as init snapshots: a finite
+                  objective and gradient, one refine launch a round, and
+                  the snapshots read back as nets of their arch.
 
-The accuracy bars of phases 8-11 are the reference's accuracy on the CPU
-on the same frames (REF_* below) less 2 of 64 frames or 1 of 16.
+The accuracy bars of phases 8-11 and 15-18 are the reference's accuracy
+on the CPU on the same frames (REF_* below) less 2 of 64 frames or 1 of
+16.
 
 The kernels phase also holds the refine kernel's init-pose backward
 (ops/gn_cuda.py:InitSensitiveRefine, one launch on B x 12 probe poses)
 against its plain version and against autograd through the truncated
 PyTorch unroll, at the training shape (B = 1) and at B = 8.
 
-Before each of phases 4-14 (each variant of phase 11) the kernels' launch
-counters are set to 0, and they are read just after it, with the phase's
-peak device memory; each phase fails if a kernel of its path was never
-launched.  Then nvidia-smi's line, one JSON line of per-kernel numbers
-(launches summed over phases 4-14, by phase, and the kernels phase's
+Before each of phases 4-20 (each variant of phase 11, each arch of phase
+20) the kernels' launch counters are set to 0, and they are read just
+after it, with the phase's peak device memory; each phase fails if a
+kernel of its path was never launched.  Then nvidia-smi's line, one JSON line of per-kernel numbers
+(launches summed over phases 4-20, by phase, and the kernels phase's
 check launches apart),
 and the last line
 {"ok": true, "device": {...}}.  Any failed bar or error exits non-zero
@@ -169,6 +190,19 @@ REF_TEST_RANSAC_SOFTAM_ACCURACY = 0.9375
 REF_VARIANT_ACCURACY = {"model_none": 1.0, "refine_hard": 0.9375,
                         "fused_scoring": 1.0}
 VARIANT_FRAMES = 16
+# The arch phases (--arch; models/coord_net.py), with the committed s2d and
+# patch weights: the reference's accuracy on the CPU on the same frames,
+# printed by `PYTHONPATH=. python tests/test_torch_coord_arch.py VARIANT
+# FRAMES`; name -> (reference accuracy, frames).  serve_s2d and
+# serve_patch: two-phase sampling, fused soft scoring, top 4 refined;
+# serve_patch_cnn: the score CNN of artifacts/score_e2e_patch.npz;
+# test_ransac_patch: fixed-T sampling, the score CNN, the pool refined.
+REF_ARCH_ACCURACY = {"serve_s2d": (1.0, 64), "serve_patch": (1.0, 64),
+                     "serve_patch_cnn": (1.0, 64),
+                     "test_ransac_patch": (1.0, 16)}
+CTX_FRAMES = 16  # serve_ctx: a fresh init, no accuracy bar
+TRAIN_ARCHS = ("patch", "dense_s2d")  # train_arch, TRAIN_ARCH_ROUNDS each
+TRAIN_ARCH_ROUNDS = 2
 
 # On the serve path's P3P pool a kernel may miss its bar against the
 # plain version in f64 on at most this many more elements than the plain
@@ -197,7 +231,13 @@ PATHS = {"serve": ("p3p", "soft_inlier_score", "refine_irls"),
          "serve_softam_cnn": ("p3p", "diffmap", "refine_irls"),
          "test_ransac_softam": ("diffmap", "refine_irls"),
          "test_ransac_variants": ("diffmap", "refine_irls",
-                                  "soft_inlier_score")}
+                                  "soft_inlier_score"),
+         "serve_s2d": ("p3p", "soft_inlier_score", "refine_irls"),
+         "serve_patch": ("p3p", "soft_inlier_score", "refine_irls"),
+         "serve_patch_cnn": ("p3p", "diffmap", "refine_irls"),
+         "test_ransac_patch": ("diffmap", "refine_irls"),
+         "serve_ctx": ("p3p", "soft_inlier_score", "refine_irls"),
+         "train_arch": ("refine_irls",)}
 # test_ransac_variants: each variant's flags and path, and the kernels it
 # must not launch (hard refinement runs in PyTorch)
 VARIANTS = {"model_none": (["--model", "none"], ("diffmap", "refine_irls"),
@@ -857,6 +897,8 @@ def serve_problems(res: dict, launches: dict, path: tuple,
                         + bar_note)
     if not res["poses_finite"]:
         problems.append("non-finite served pose")
+    if not res["scores_finite"]:
+        problems.append("non-finite hypothesis score")
     if "diffmap" in path and launches["diffmap"] != batches:
         problems.append(f"diffmap launched {launches['diffmap']} times for "
                         f"{batches} served batches")
@@ -962,8 +1004,8 @@ def train_grad(dev) -> tuple[dict, list[str]]:
                                             refine_pose_fused,
                                             refine_pose_fused_ref)
     from dsac_tpu_torch.pipeline import forward
-    from dsac_tpu_torch.pipeline.train import (dense_coord_apply,
-                                               e2e_expected_loss)
+    from dsac_tpu_torch.models.coord_net import coord_apply
+    from dsac_tpu_torch.pipeline.train import e2e_expected_loss
     from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
                                                 load_score_net_npz)
 
@@ -997,7 +1039,7 @@ def train_grad(dev) -> tuple[dict, list[str]]:
             forward.refine_pose_fused = fixed_point
         try:
             obj, aux = e2e_expected_loss(
-                lambda im, pix: dense_coord_apply(coord_net, im, pix),
+                lambda im, pix: coord_apply(coord_net, im, pix),
                 score_net, image, gt, data.camera(), cfg, softam=softam,
                 refine_mode=mode,
                 generator=torch.Generator(device=dev).manual_seed(7))
@@ -1097,7 +1139,7 @@ def softam_average_backward(dev, coord_net, score_net, scene, cfg,
     from dsac_tpu_torch.ops.gn_cuda import refine_init_sensitive
     from dsac_tpu_torch.pipeline.forward import (process_frame_softam,
                                                  softam_average)
-    from dsac_tpu_torch.pipeline.train import dense_coord_apply
+    from dsac_tpu_torch.models.coord_net import coord_apply
 
     cam = cfg.data.camera()
     frames = []
@@ -1106,7 +1148,7 @@ def softam_average_backward(dev, coord_net, score_net, scene, cfg,
         with torch.no_grad():
             res = process_frame_softam(
                 scene.render(gt)[0],
-                lambda im, pix: dense_coord_apply(coord_net, im, pix),
+                lambda im, pix: coord_apply(coord_net, im, pix),
                 score_net, cam, cfg, refine_mode="implicit",
                 generator=torch.Generator(device=dev).manual_seed(7))
             avg = softam_average(res.probs, res.hyps)
@@ -1152,27 +1194,33 @@ def softam_average_backward(dev, coord_net, score_net, scene, cfg,
                    "frame finite"}
 
 
-def train_phase(softam: bool) -> tuple[dict, list[str]]:
-    """TRAIN_ROUNDS rounds of train_ransac from the trained weights,
-    written as the port's init snapshots into a fresh runs/ directory."""
+def train_phase(softam: bool, arch: str = "dense",
+                rounds: int = TRAIN_ROUNDS) -> tuple[dict, list[str]]:
+    """``rounds`` rounds of train_ransac --arch ``arch`` from the trained
+    weights, written as the port's init snapshots into a fresh runs/
+    directory; the end-to-end snapshots must read back as nets of the
+    arch."""
     from dsac_tpu_torch.cli import train_ransac
-    from dsac_tpu_torch.models import DenseCoordNet, ScoreNet
+    from dsac_tpu_torch.cli.common import ART_SUFFIX
+    from dsac_tpu_torch.models import ScoreNet, coord_net_for_state
     from dsac_tpu_torch.utils import checkpoint as ckpt
     from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
                                                 load_score_net_npz)
 
-    tag = "softam" if softam else "e2e"
+    tag = ("softam" if softam else "e2e") + ART_SUFFIX[arch]
     out = REPO / "runs" / f"chip_smoke_train_{tag}"
     shutil.rmtree(out, ignore_errors=True)
+    art = REPO / "artifacts"
     for name, net in ((ckpt.OBJ_INIT, load_coord_net_npz(
-            REPO / "artifacts" / "coord_e2e.npz", "cpu")),
+            art / f"coord_e2e{ART_SUFFIX[arch]}.npz", "cpu", arch)),
                       (ckpt.SCORE_INIT, load_score_net_npz(
-                          REPO / "artifacts" / "score_e2e.npz", "cpu"))):
+                          art / f"score_e2e{ART_SUFFIX[arch]}.npz", "cpu"))):
         ckpt.save(out, name, {"params": net.state_dict()})
+    every = max(1, rounds // 2)
     res = train_ransac.main(
-        ["--rounds", str(TRAIN_ROUNDS), "--snapshot-every", "4", "--out",
-         str(out), "--device", "cuda", "--refine-mode", "auto"]
-        + (["--softam"] if softam else []))
+        ["--rounds", str(rounds), "--snapshot-every", str(every), "--out",
+         str(out), "--device", "cuda", "--refine-mode", "auto", "--arch",
+         arch] + (["--softam"] if softam else []))
     problems = []
     per_round = [r["launches"] for r in res["rounds"]]
     want_fwd, want_bwd = (2, 1) if softam else (1, 0)
@@ -1185,20 +1233,21 @@ def train_phase(softam: bool) -> tuple[dict, list[str]]:
                 or r["launches"]["refine_init_backward"] != want_bwd):
             problems.append(f"round {r['round']}: launches {r['launches']}, "
                             f"want refine {want_fwd}, backward {want_bwd}")
-    if res["refine_mode"] != "implicit" or len(res["rounds"]) != TRAIN_ROUNDS:
+    if res["refine_mode"] != "implicit" or len(res["rounds"]) != rounds:
         problems.append(f"mode {res['refine_mode']}, "
                         f"{len(res['rounds'])} rounds")
     obj_name = ckpt.OBJ_SOFTAM if softam else ckpt.OBJ_E2E
     score_name = ckpt.SCORE_SOFTAM if softam else ckpt.SCORE_E2E
     snap_c = ckpt.restore(out, obj_name)
     snap_s = ckpt.restore(out, score_name)
-    DenseCoordNet(width=64).load_state_dict(snap_c["params"])
+    coord_net_for_state(snap_c["params"], arch)
     ScoreNet().load_state_dict(snap_s["params"])
-    if not (res["snapshots"] == [4, TRAIN_ROUNDS]
-            and snap_c["step"] == snap_s["step"] == TRAIN_ROUNDS):
+    want = sorted({*range(every, rounds + 1, every), rounds})
+    if not (res["snapshots"] == want
+            and snap_c["step"] == snap_s["step"] == rounds):
         problems.append(f"snapshots {res['snapshots']}, restored steps "
                         f"{snap_c['step']}, {snap_s['step']}")
-    summary = {k: res[k] for k in ("objective", "refine_mode",
+    summary = {k: res[k] for k in ("objective", "arch", "refine_mode",
                                    "ms_per_round_median", "first_round_ms",
                                    "peak_memory_bytes", "snapshots")}
     summary["launches_per_round"] = per_round
@@ -1206,6 +1255,23 @@ def train_phase(softam: bool) -> tuple[dict, list[str]]:
     summary["grad_norms"] = [r["grad_norm"] for r in res["rounds"]]
     summary["valid_hyps"] = [r["valid_hyps"] for r in res["rounds"]]
     return summary, problems
+
+
+def train_arch() -> tuple[dict, list[str]]:
+    """train_phase for each of TRAIN_ARCHS, each with its counters set to
+    0; returns the results by arch, with their launches."""
+    from dsac_tpu_torch.cli import serve
+    results, problems = {}, []
+    for arch in TRAIN_ARCHS:
+        (res, found), launches, seconds, peak = run_phase(
+            lambda: train_phase(False, arch, TRAIN_ARCH_ROUNDS),
+            serve.KERNELS)
+        found += [f"{k} kernel never launched" for k in PATHS["train_arch"]
+                  if launches[k] == 0]
+        problems += [f"{arch}: {x}" for x in found]
+        results[arch] = {"seconds": seconds, "launches": launches,
+                         "phase_peak_memory_bytes": peak, **res}
+    return results, problems
 
 
 def main() -> int:
@@ -1383,10 +1449,94 @@ def main() -> int:
                   file=sys.stderr)
             return 1
 
+    # the coordinate-net archs: serving and test_ransac with the committed
+    # s2d and patch weights, held to the reference's accuracy
+    arch_phases = {
+        "serve_s2d": (serve.main, serve_args + [
+            "--arch", "dense_s2d", "--queue", "8", "--reps", "1"], 2 * 8),
+        "serve_patch": (serve.main, serve_args + [
+            "--arch", "patch", "--queue", "8", "--reps", "1"], 2 * 8),
+        "serve_patch_cnn": (serve.main, serve_args + [
+            "--arch", "patch", "--no-fused-scoring", "--queue", "8", "--reps",
+            "1"], 2 * 8),
+        "test_ransac_patch": (test_ransac.main, [
+            "--synthetic", str(REF_ARCH_ACCURACY["test_ransac_patch"][1]),
+            "--arch", "patch"] + eval_args, None),
+    }
+    for name, (entry, argv, batches) in arch_phases.items():
+        res, launches, seconds, peak = run_phase(lambda: entry(argv),
+                                                 serve.KERNELS)
+        ref, frames = REF_ARCH_ACCURACY[name]
+        emit({"phase": name, "seconds": seconds, "launches": launches,
+              "peak_memory_bytes": peak, "arch": res["arch"],
+              "accuracy_5cm5deg": res["accuracy_5cm5deg"],
+              "reference_accuracy": ref,
+              **({"tag": res["tag"], "test_ransac_seconds": res["seconds"]}
+                 if batches is None else
+                 {"reloc_per_s": res["reloc_per_s"]})})
+        results[name], by_phase[name] = res, launches
+        for k, n in launches.items():
+            total[k] += n
+        lose = 2 if frames == 64 else 1
+        if batches is None:
+            problems = eval_problems(res, launches, PATHS[name],
+                                     ("soft_inlier_score", "p3p",
+                                      "irls_stats"), frames, ref, lose)
+            if "_patch_" not in res["tag"]:
+                problems.append(f"tag {res['tag']} does not name the arch")
+        else:
+            problems = serve_problems(
+                res, launches, PATHS[name], batches, ref - lose / frames,
+                f" (reference {ref} less {lose} of {frames} frames)")
+        if problems:
+            print(f"chip_smoke: {name} failed: " + "; ".join(problems),
+                  file=sys.stderr)
+            return 1
+
+    # dense_ctx has no committed weights: a fresh init from an empty --out
+    ctx_out = REPO / "runs" / "chip_smoke_ctx"
+    shutil.rmtree(ctx_out, ignore_errors=True)
+    ctx_out.mkdir(parents=True)
+    res, launches, seconds, peak = run_phase(lambda: serve.main([
+        "--synthetic", str(CTX_FRAMES), "--verify-topk", "4", "--attempts",
+        "16", "--batch", "8", "--queue", str(CTX_FRAMES // 8), "--reps",
+        "1", "--device", "cuda", "--arch", "dense_ctx", "--out",
+        str(ctx_out)]), serve.KERNELS)
+    results["serve_ctx"], by_phase["serve_ctx"] = res, launches
+    for k, n in launches.items():
+        total[k] += n
+    emit({"phase": "serve_ctx", "seconds": seconds, "launches": launches,
+          "peak_memory_bytes": peak, "arch": res["arch"],
+          "poses_finite": res["poses_finite"],
+          "scores_finite": res["scores_finite"],
+          "reloc_per_s": res["reloc_per_s"],
+          "accuracy_5cm5deg_no_bar": res["accuracy_5cm5deg"]})
+    problems = serve_problems(res, launches, PATHS["serve_ctx"],
+                              2 * CTX_FRAMES // 8, 0.0)
+    if problems:
+        print("chip_smoke: serve_ctx failed: " + "; ".join(problems),
+              file=sys.stderr)
+        return 1
+
+    arch_results, problems = train_arch()
+    phase_launches = {k: sum(r["launches"][k] for r in arch_results.values())
+                      for k in serve.KERNELS}
+    by_phase["train_arch"] = phase_launches
+    for k, n in phase_launches.items():
+        total[k] += n
+    emit({"phase": "train_arch", "rounds": TRAIN_ARCH_ROUNDS,
+          "launches": phase_launches, "archs": arch_results})
+    if problems:
+        print("chip_smoke: train_arch failed: " + "; ".join(problems),
+              file=sys.stderr)
+        return 1
+
     emit({"phase": "summary",
           "reloc_per_s": {k: results[k]["reloc_per_s"]
                           for k in ("serve", "serve_cnn", "serve_fixed_t",
-                                    "serve_softam", "serve_softam_cnn")},
+                                    "serve_softam", "serve_softam_cnn",
+                                    "serve_s2d", "serve_patch",
+                                    "serve_patch_cnn", "serve_ctx")},
           "accuracy_5cm5deg": {
               **{k: results[k]["accuracy_5cm5deg"] for k in results},
               **{f"test_ransac_{v}": x["accuracy_5cm5deg"]
@@ -1398,7 +1548,8 @@ def main() -> int:
               "serve_softam_cnn": REF_SERVE_SOFTAM_CNN_ACCURACY,
               "test_ransac_softam": REF_TEST_RANSAC_SOFTAM_ACCURACY,
               **{f"test_ransac_{v}": x
-                 for v, x in REF_VARIANT_ACCURACY.items()}}})
+                 for v, x in REF_VARIANT_ACCURACY.items()},
+              **{k: ref for k, (ref, _n) in REF_ARCH_ACCURACY.items()}}})
 
     for row in rows:
         row["launches"] = total[row["name"]]

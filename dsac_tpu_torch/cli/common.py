@@ -16,6 +16,12 @@ selection of load_eval_params, :330-402).
             init, as in the reference) or, without ``--out``, the
             committed artifact.
 
+``--arch`` picks the coordinate net (models/coord_net.py): the artifacts
+are ``coord_e2e{_s2d|_patch}[_softam].npz`` and their ``score_e2e``
+twins, as bench.py names them (``dense_ctx`` has none committed); a file
+or snapshot of another arch is an error.  ``--width-mult`` sizes a
+freshly initialised net; loaded nets take their widths from their files.
+
 With ``--out``, the reference's order of fallbacks holds: a coordinate
 net found in no snapshot is a fresh init (seed 1), and a score net found
 in none is the soft-inlier head.  ``--weights`` and ``--score-weights``
@@ -33,9 +39,12 @@ from typing import NamedTuple
 import torch
 
 from dsac_tpu_torch.config import DSACConfig
-from dsac_tpu_torch.models import DenseCoordNet, ScoreNet, init_like_flax
+from dsac_tpu_torch.models import (ScoreNet, coord_net_for_state,
+                                   init_like_flax)
+from dsac_tpu_torch.models.coord_net import (ARCHS, coord_apply,
+                                             make_coord_net)
 from dsac_tpu_torch.ops.diffmap import soft_inlier_scores
-from dsac_tpu_torch.pipeline.forward import ScoreFn
+from dsac_tpu_torch.pipeline.forward import CoordFn, ScoreFn
 from dsac_tpu_torch.utils import checkpoint as ckpt
 from dsac_tpu_torch.utils.logging import blue
 from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
@@ -43,6 +52,30 @@ from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
 
 REPO = Path(__file__).resolve().parents[2]
 MODELS = ("endtoend", "best", "init", "none")
+# the artifacts' file suffix per arch (bench.py:41-43)
+ART_SUFFIX = {"dense": "", "dense_s2d": "_s2d", "dense_ctx": "_ctx",
+              "patch": "_patch"}
+
+
+def add_arch_args(ap: argparse.ArgumentParser) -> None:
+    """``--arch`` and ``--width-mult`` (dsac_tpu/cli/common.py:132-141)."""
+    ap.add_argument("--arch", choices=ARCHS, default="dense",
+                    help="coordinate net: dense FCN (flagship), dense FCN "
+                         "with space-to-depth stem, dense FCN + dilated "
+                         "long-range-context stack (~530 px RF for "
+                         "period-ambiguous scenes), or reference-parity "
+                         "patch net")
+    ap.add_argument("--width-mult", type=float, default=1.0,
+                    help="width multiplier of freshly initialised nets "
+                         "(loaded nets keep their widths)")
+
+
+def coord_fn_for(net: torch.nn.Module, cfg: DSACConfig) -> CoordFn:
+    """The coordinate stage of a net, (images, pix) -> (B, N, 3) metres:
+    the dense archs' stride-8 map gathered at the pixels, or the patch
+    net on ``cfg.net.rgb_patch_size`` patches centred there."""
+    size = cfg.net.rgb_patch_size
+    return lambda images, pix: coord_apply(net, images, pix, size)
 
 
 def add_model_args(ap: argparse.ArgumentParser) -> None:
@@ -75,18 +108,19 @@ def soft_inlier_score_fn(cfg: DSACConfig) -> ScoreFn:
 
 
 class EvalModels(NamedTuple):
-    coord_net: DenseCoordNet
+    coord_net: torch.nn.Module  # of --arch
     coord_src: str  # the snapshot or artifact it came from, or "random"
     score_net: ScoreNet | None  # None: the soft-inlier head, or no scoring
     score_fn: ScoreFn | None  # the score CNN or the soft-inlier head
     score_src: str  # the snapshot or artifact, "soft_inlier_head" or "none"
 
 
-def _coord_from_snapshot(out: str, name: str, device) -> DenseCoordNet:
+def _coord_from_snapshot(out: str, name: str, arch: str,
+                         device) -> torch.nn.Module:
+    """The snapshot's coordinate net, rebuilt from its parameters' names
+    and shapes; one of another arch than ``arch`` raises ValueError."""
     params = ckpt.restore(out, name)["params"]
-    net = DenseCoordNet(width=params["convs.0.weight"].shape[0])
-    net.load_state_dict(params)
-    return net.to(device).eval()
+    return coord_net_for_state(params, arch).to(device).eval()
 
 
 def _score_from_snapshot(out: str, name: str, device) -> ScoreNet:
@@ -102,7 +136,7 @@ def load_eval_models(args: argparse.Namespace, cfg: DSACConfig,
     """The nets of ``--model``, ``--out``, ``--weights`` and
     ``--score-weights`` (module docstring).  ``score_cnn=False`` (fused
     scoring) loads no score net."""
-    suffix = "_softam" if softam else ""
+    suffix = ART_SUFFIX[args.arch] + ("_softam" if softam else "")
     obj_e2e = ckpt.OBJ_SOFTAM if softam else ckpt.OBJ_E2E
     score_e2e = ckpt.SCORE_SOFTAM if softam else ckpt.SCORE_E2E
     if args.model in ("init", "best") and not args.out:
@@ -111,8 +145,8 @@ def load_eval_models(args: argparse.Namespace, cfg: DSACConfig,
 
     if args.weights or not args.out:
         path = args.weights or REPO / "artifacts" / f"coord_e2e{suffix}.npz"
-        coord_net, coord_src = load_coord_net_npz(path, device), \
-            Path(path).stem
+        coord_net, coord_src = load_coord_net_npz(path, device,
+                                                  args.arch), Path(path).stem
     else:
         names = {"endtoend": [obj_e2e, ckpt.OBJ_INIT],
                  "best": [obj_e2e + "_best", obj_e2e, ckpt.OBJ_INIT],
@@ -121,7 +155,7 @@ def load_eval_models(args: argparse.Namespace, cfg: DSACConfig,
         for name in names:
             try:
                 coord_net, coord_src = _coord_from_snapshot(
-                    args.out, name, device), name
+                    args.out, name, args.arch, device), name
                 print(blue(f"Loaded {name}."))
                 break
             except FileNotFoundError:
@@ -129,8 +163,8 @@ def load_eval_models(args: argparse.Namespace, cfg: DSACConfig,
         if coord_net is None:
             print(blue("Using freshly initialised coordinate net."))
             coord_net = init_like_flax(
-                DenseCoordNet(), torch.Generator().manual_seed(1)
-            ).to(device).eval()
+                make_coord_net(args.arch, args.width_mult),
+                torch.Generator().manual_seed(1)).to(device).eval()
 
     if not score_cnn:
         return EvalModels(coord_net, coord_src, None, None, "none")

@@ -4,15 +4,22 @@ with ``--softam`` the soft-argmax average refined), with fused
 soft-inlier scoring or, with ``--no-fused-scoring``, the diff-map kernel
 and the score CNN; or, with ``--train dsac|softam``, for
 one end-to-end training round of ``train_ransac`` at the reference's
-configuration (DenseCoordNet 64 on 640x480, ScoreNet 1.0, 256 hypotheses
-of 16 attempts, refine mode ``implicit``) from the trained weights of
-``artifacts/``, on fixture frame 0.
+configuration (the coordinate net on 640x480, ScoreNet 1.0, 256
+hypotheses of 16 attempts, refine mode ``implicit``) from the trained
+weights of ``artifacts/``, on fixture frame 0.  ``--arch`` picks the
+coordinate net and its artifacts (cli/common.py); an arch without
+committed weights (``dense_ctx``) runs a fresh init at ``--width-mult``
+and, for serving, the soft-inlier head instead of a score CNN; for every
+other arch a missing weight file is an error.
 
 Measures, after two warm-up batches (rounds):
 
 * the batch (round) time, CUDA events over ``--steps`` of them;
-* serving: the coordinate CNN alone on the same batch (CUDA events), with
-  its achieved rate from its FLOP count; with ``--no-fused-scoring`` the
+* serving: the coordinate stage alone on the same batch, the net and the
+  gather at (or the patch extraction around) its 1,600 sampled pixels a
+  frame (CUDA events), with its achieved rate from the net's FLOP count
+  (a dense net's convolutions on the frames; the patch net's on the
+  12,800 patches); with ``--no-fused-scoring`` the
   score CNN alone on the batch's (8 x 256, 40, 40) maps, likewise;
   training: the forward alone (the objective without its backward);
 * a ``torch.profiler`` window over ``--steps`` of them: device time by
@@ -27,6 +34,7 @@ Prints one JSON line (and writes it to ``--out`` when given).
     python -m dsac_tpu_torch.cli.profile_serve --steps 8 --no-fused-scoring
     python -m dsac_tpu_torch.cli.profile_serve --steps 8 --softam
     python -m dsac_tpu_torch.cli.profile_serve --steps 4 --train softam
+    python -m dsac_tpu_torch.cli.profile_serve --steps 8 --arch patch
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ from pathlib import Path
 
 import torch
 
-from dsac_tpu_torch.cli import serve
+from dsac_tpu_torch.cli import common, serve
+from dsac_tpu_torch.models.coord_net import PatchCoordNet
 from dsac_tpu_torch.utils.timing import (device_us, events_ms,
                                         is_device_event, profile)
 
@@ -46,16 +55,16 @@ BATCH = 8  # frames per batch at the bench config
 KERNEL_NAMES = {"p3p": "p3p_kernel", "soft_inlier_score": "score_kernel",
                 "refine_irls": "refine_kernel", "diffmap": "diffmap_kernel",
                 "irls_stats": "irls_stats_kernel"}  # name -> CUDA symbol
+UNTRAINED = "dense_ctx"  # the one arch without committed weights
 
 
-def coord_net_flops(height: int, width: int, spec) -> int:
-    """Multiply-adds x 2 of DenseCoordNet's convolutions at one frame."""
-    flops, cin, h, w = 0, 3, height, width
-    for cout, k, s in spec:
-        h, w = -(-h // s), -(-w // s)
-        flops += 2 * h * w * k * k * cin * cout
-        cin = cout
-    return flops
+def coord_net_flops(net, height: int, width: int, points: int) -> int:
+    """Multiply-adds x 2 of a coordinate net on one frame: a dense net's
+    convolutions on the (height, width) frame, or the patch net on the
+    ``points`` patches."""
+    if isinstance(net, PatchCoordNet):
+        return net.flops_per_patch() * points
+    return net.flops_per_frame(height, width)
 
 
 def breakdown(fn, steps: int, unit: str, unit_ms: float) -> dict:
@@ -82,13 +91,15 @@ def breakdown(fn, steps: int, unit: str, unit_ms: float) -> dict:
     }
 
 
-def train_round(objective: str, steps: int) -> dict:
+def train_round(objective: str, steps: int, arch: str,
+                width_mult: float) -> dict:
     """The breakdown of one training round (``--train``)."""
     from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
     from dsac_tpu_torch.data.synthetic import SyntheticScene
     from dsac_tpu_torch.geometry.pose import Pose
-    from dsac_tpu_torch.pipeline.train import (dense_coord_apply,
-                                               e2e_expected_loss, e2e_step,
+    from dsac_tpu_torch.models import ScoreNet, init_like_flax
+    from dsac_tpu_torch.models.coord_net import make_coord_net
+    from dsac_tpu_torch.pipeline.train import (e2e_expected_loss, e2e_step,
                                                make_e2e_state)
     from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
                                                 load_score_net_npz)
@@ -101,9 +112,17 @@ def train_round(objective: str, steps: int) -> dict:
                            data.focal_length, device=dev)
     gt = Pose(scene.bench_poses.R[:1], scene.bench_poses.t[:1])
     image = scene.render(gt)[0]
-    state = make_e2e_state(
-        load_coord_net_npz(REPO / "artifacts" / "coord_e2e.npz", dev),
-        load_score_net_npz(REPO / "artifacts" / "score_e2e.npz", dev))
+    suffix = common.ART_SUFFIX[arch]
+    if arch == UNTRAINED:
+        gen = torch.Generator().manual_seed(1)
+        nets = (init_like_flax(make_coord_net(arch, width_mult), gen),
+                init_like_flax(ScoreNet(width_mult), gen))
+    else:
+        nets = (load_coord_net_npz(REPO / "artifacts" /
+                                   f"coord_e2e{suffix}.npz", dev, arch),
+                load_score_net_npz(REPO / "artifacts" /
+                                   f"score_e2e{suffix}.npz", dev))
+    state = make_e2e_state(*(n.to(dev) for n in nets))
     gen = torch.Generator(device=dev).manual_seed(7)
     softam = objective == "softam"
 
@@ -114,15 +133,17 @@ def train_round(objective: str, steps: int) -> dict:
     def forward():
         with torch.no_grad():
             e2e_expected_loss(
-                lambda im, pix: dense_coord_apply(state.coord_net, im, pix),
-                state.score_net, image, gt, cam, cfg, softam=softam,
-                refine_mode="implicit", generator=gen)
+                common.coord_fn_for(state.coord_net, cfg), state.score_net,
+                image, gt, cam, cfg, softam=softam, refine_mode="implicit",
+                generator=gen)
 
     for _ in range(2):
         round_()
     torch.cuda.synchronize()
     round_ms = events_ms(round_, steps)
     return {"metric": "train_round_breakdown", "objective": objective,
+            "arch": arch, "coord_weights": "random" if arch == UNTRAINED
+            else f"coord_e2e{suffix}",
             "round_ms": round_ms, "forward_ms": events_ms(forward, steps),
             **breakdown(round_, steps, "round", round_ms)}
 
@@ -138,10 +159,12 @@ def main(argv=None) -> dict:
                     help="serve the soft-argmax variant (its artifacts)")
     ap.add_argument("--train", choices=("dsac", "softam"), default=None,
                     help="profile a training round of this objective")
+    common.add_arch_args(ap)
     args = ap.parse_args(argv)
     if args.train:
         result = {"device": torch.cuda.get_device_name(0),
-                  "steps": args.steps, **train_round(args.train, args.steps)}
+                  "steps": args.steps, **train_round(
+                      args.train, args.steps, args.arch, args.width_mult)}
     else:
         result = serve_batch(args)
     line = json.dumps(result)
@@ -154,11 +177,17 @@ def main(argv=None) -> dict:
 
 def serve_batch(args) -> dict:
     """The breakdown of one serve batch."""
+    fresh = args.arch == UNTRAINED
+    if fresh:  # an empty run directory: a fresh init, the soft head
+        empty = REPO / "runs" / "profile_serve_fresh"
+        empty.mkdir(parents=True, exist_ok=True)
     st = serve.stage(serve.parse_args([
         "--synthetic", str(BATCH), "--batch", str(BATCH), "--queue", "1",
-        "--device", "cuda"] + ([] if args.fused_scoring
-                               else ["--no-fused-scoring"])
-        + (["--softam"] if args.softam else [])))
+        "--device", "cuda", "--arch", args.arch,
+        "--width-mult", str(args.width_mult)]
+        + ([] if args.fused_scoring else ["--no-fused-scoring"])
+        + (["--softam"] if args.softam else [])
+        + (["--out", str(empty)] if fresh else [])))
     imgs = st.images[0]
     B, H, W = imgs.shape[:3]
 
@@ -167,7 +196,8 @@ def serve_batch(args) -> dict:
             res = st.serve_batch(imgs)
         torch.cuda.synchronize()
         batch_ms = events_ms(lambda: st.serve_batch(imgs), args.steps)
-        cnn_ms = events_ms(lambda: st.net(imgs), args.steps)
+        pix = res.sampling.reshape(B, -1, 2)
+        cnn_ms = events_ms(lambda: st.coord_fn(imgs, pix), args.steps)
         score = {}
         if st.score_net is not None:
             maps = res.dmaps.reshape(-1, *res.dmaps.shape[2:]).contiguous()
@@ -182,12 +212,14 @@ def serve_batch(args) -> dict:
         prof = breakdown(lambda: st.serve_batch(imgs), args.steps, "batch",
                          batch_ms)
 
-    flops = coord_net_flops(H, W, st.net.spec) * B
+    flops = coord_net_flops(st.net, H, W, pix.shape[1]) * B
     return {
         "metric": "serve_batch_breakdown",
         "device": torch.cuda.get_device_name(0),
         "scoring": "fused_soft" if args.fused_scoring else "cnn",
         "variant": "softam" if args.softam else "dsac",
+        "arch": args.arch, "coord_weights": "random" if fresh else
+        f"coord_e2e{common.ART_SUFFIX[args.arch]}",
         "batch": B, "steps": args.steps,
         "batch_ms": batch_ms,
         "reloc_per_s": B / batch_ms * 1e3,

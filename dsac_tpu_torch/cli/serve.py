@@ -4,7 +4,9 @@ single-chip path).
 Renders ``--synthetic N`` frames of the default room at the bench poses
 (data/room_default.json, the ground truth), stages a queue of
 ``--queue`` batches of ``--batch`` frames on the device, and serves them:
-DenseCoordNet -> P3P sampling of 256 hypotheses with ``--attempts``
+the coordinate net of ``--arch`` (the stride-8 map of a dense net
+gathered at the 40x40 sampled pixels, or the patch net on the 1,600
+patches centred there) -> P3P sampling of 256 hypotheses with ``--attempts``
 attempts (two-phase, re-solving ``--two-phase-budget`` of the pool in
 phase 2, or fixed-T through the P3P kernel with ``--no-two-phase``) ->
 scores (the fused soft-inlier kernel, or with ``--no-fused-scoring`` the
@@ -26,12 +28,14 @@ winner alone and PoseConfig.random_draw.  ``--two-phase-sampling`` is
 the reference's name of ``--two-phase``.
 
 Prints one JSON line: throughput, accuracy at 5 cm / 5 deg of the last
-pass's poses, median errors, and each kernel's launch count; with
+pass's poses, median errors, whether every pose and score of the last
+pass is finite, the arch, and each kernel's launch count; with
 ``--softam`` also ``"variant": "softam"``.
 
     python -m dsac_tpu_torch.cli.serve --synthetic 64 --queue 8 --batch 8
     python -m dsac_tpu_torch.cli.serve --no-fused-scoring
     python -m dsac_tpu_torch.cli.serve --softam
+    python -m dsac_tpu_torch.cli.serve --arch patch
 """
 
 from __future__ import annotations
@@ -46,13 +50,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from dsac_tpu_torch import resolve_device
-from dsac_tpu_torch.cli.common import add_model_args, load_eval_models
+from dsac_tpu_torch.cli.common import (add_arch_args, add_model_args,
+                                       coord_fn_for, load_eval_models)
 from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
 from dsac_tpu_torch.data.seven_scenes import write_pose_file
 from dsac_tpu_torch.data.synthetic import SyntheticScene
 from dsac_tpu_torch.geometry.loss import is_correct, pose_errors
 from dsac_tpu_torch.geometry.pose import Pose
-from dsac_tpu_torch.models.coord_net import DenseCoordNet, gather_dense_coords
 from dsac_tpu_torch.models.score_net import ScoreNet
 from dsac_tpu_torch.ops.diffmap_cuda import diffmaps, soft_inlier_scores
 from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine, irls_stats,
@@ -90,6 +94,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "phase 2 (PoseConfig.two_phase_budget, 0.125)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--device", default="cuda")
+    add_arch_args(ap)
     add_model_args(ap)
     ap.add_argument("--fused-scoring", action=argparse.BooleanOptionalAction,
                     default=True,
@@ -123,7 +128,8 @@ class Staged(NamedTuple):
     device: torch.device
     images: torch.Tensor  # (Q, B, H, W, 3) RGB in [0, 255]
     gt: Pose  # (Q * B,) ground-truth scene -> eye poses
-    net: DenseCoordNet
+    net: torch.nn.Module  # the coordinate net of --arch
+    coord_fn: Callable  # (images, pix) -> (B, N, 3) metres
     score_net: ScoreNet | None  # with --no-fused-scoring and a score CNN
     serve_batch: Callable[[torch.Tensor], FrameResult]
 
@@ -157,9 +163,7 @@ def stage(args: argparse.Namespace) -> Staged:
                               gt.t[q * B:(q + 1) * B]))[0]
             for q in range(Q)])
 
-    def coord_fn(imgs, pix):
-        return gather_dense_coords(net(imgs), pix, stride=8)
-
+    coord_fn = coord_fn_for(net, cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     def serve_batch(imgs: torch.Tensor) -> FrameResult:
@@ -171,7 +175,8 @@ def stage(args: argparse.Namespace) -> Staged:
             sampling="two_phase" if args.two_phase else True,
             fused_refine=args.fused_refine, softam=args.softam)
 
-    return Staged(device, images, gt, net, models.score_net, serve_batch)
+    return Staged(device, images, gt, net, coord_fn, models.score_net,
+                  serve_batch)
 
 
 def main(argv=None) -> dict:
@@ -181,8 +186,9 @@ def main(argv=None) -> dict:
 
     def serve_queue():
         res = [st.serve_batch(st.images[q]) for q in range(Q)]
-        return Pose(torch.cat([r.final.R for r in res]),
-                    torch.cat([r.final.t for r in res]))
+        return (Pose(torch.cat([r.final.R for r in res]),
+                     torch.cat([r.final.t for r in res])),
+                [r.scores for r in res])
 
     with torch.no_grad():
         serve_queue()  # warm-up: cuDNN algorithm choice, allocator
@@ -192,14 +198,14 @@ def main(argv=None) -> dict:
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(args.reps):
-                out = serve_queue()
+                out, scores = serve_queue()
             end.record()
             torch.cuda.synchronize(device)
             seconds = start.elapsed_time(end) / 1e3
         else:
             t0 = time.perf_counter()
             for _ in range(args.reps):
-                out = serve_queue()
+                out, scores = serve_queue()
             seconds = time.perf_counter() - t0
 
     if args.export_poses:
@@ -218,7 +224,9 @@ def main(argv=None) -> dict:
         "median_trans_mm": float(trans.median()),
         "poses_finite": bool(torch.isfinite(out.R).all()
                              and torch.isfinite(out.t).all()),
+        "scores_finite": all(bool(torch.isfinite(x).all()) for x in scores),
         **({"variant": "softam"} if args.softam else {}),
+        "arch": args.arch,
         "model": args.model,
         "scoring": "fused_soft" if args.fused_scoring else "cnn",
         "sampling": "two_phase" if args.two_phase else "fixed_t_fused",

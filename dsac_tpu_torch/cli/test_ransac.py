@@ -3,7 +3,8 @@ and test_ransac_softam.py, single device, without ``--mesh``).
 
 Renders ``--synthetic N`` frames of the default room at the bench poses
 (data/room_default.json, the ground truth) and runs the reference's
-test_ransac forward pass on each frame: DenseCoordNet -> fixed-T sampling
+test_ransac forward pass on each frame: the coordinate net of ``--arch``
+(cli/serve.py) -> fixed-T sampling
 of 256 hypotheses with 16 attempts, every attempt polished by the PyTorch
 P3P solver -> the diff-map kernel and the score CNN (or, with
 ``--model none``, the soft-inlier head; with ``--fused-scoring``, the
@@ -37,6 +38,7 @@ returns that line's dict and, under ``"final"``, the served poses.
 
     python -m dsac_tpu_torch.cli.test_ransac --synthetic 64 --fused-refine
     python -m dsac_tpu_torch.cli.test_ransac_softam --fused-refine
+    python -m dsac_tpu_torch.cli.test_ransac --arch patch --fused-refine
 """
 
 from __future__ import annotations
@@ -50,14 +52,14 @@ import numpy as np
 import torch
 
 from dsac_tpu_torch import resolve_device
-from dsac_tpu_torch.cli.common import add_model_args, load_eval_models
+from dsac_tpu_torch.cli.common import (add_arch_args, add_model_args,
+                                       coord_fn_for, load_eval_models)
 from dsac_tpu_torch.cli.serve import KERNELS
 from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
 from dsac_tpu_torch.data.seven_scenes import (pose_to_7scenes_vec6,
                                               write_pose_file)
 from dsac_tpu_torch.data.synthetic import SyntheticScene
 from dsac_tpu_torch.geometry.pose import Pose
-from dsac_tpu_torch.models.coord_net import gather_dense_coords
 from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused_steps
 from dsac_tpu_torch.pipeline import (evaluate_frame, process_frames_batched,
                                      summarize, verified_selection)
@@ -96,6 +98,7 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
                     help="write each served pose as a 7-Scenes pose file "
                          "frame-NNNNNN.pose.txt under this directory")
     ap.add_argument("--device", default="cuda")
+    add_arch_args(ap)
     add_model_args(ap)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -104,7 +107,7 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
 def eval_tag(args: argparse.Namespace, coord_src: str, H: int) -> str:
     """The reference's file tag (test_ransac.py:95-103)."""
     variant = "softam" if args.softam else "dsac"
-    tag = f"{variant}_dense_{coord_src}_rdraw{args.rdraw}"
+    tag = f"{variant}_{args.arch}_{coord_src}_rdraw{args.rdraw}"
     if not args.softam:
         if args.select == "inlier":
             tag += "_selinlier"
@@ -150,11 +153,7 @@ def main(argv=None, softam: bool = False) -> dict:
     p = cfg.pose
     models = load_eval_models(args, cfg, device, args.softam,
                               score_cnn=not fused_scoring)
-    net = models.coord_net
-
-    def coord_fn(imgs, pix):
-        return gather_dense_coords(net(imgs), pix, stride=8)
-
+    coord_fn = coord_fn_for(models.coord_net, cfg)
     tag = eval_tag(args, models.coord_src, p.num_hypotheses)
     log = TestLog(args.out, tag) if args.out else None
     if args.export_poses:
@@ -210,6 +209,7 @@ def main(argv=None, softam: bool = False) -> dict:
         "mean_winner_loss": float(np.mean(winners)),
         "all_finite": bool(np.isfinite([rots, trans, exps, ents]).all()),
         "variant": "softam" if args.softam else "dsac", "tag": tag,
+        "arch": args.arch,
         "model": args.model, "coord_src": models.coord_src,
         "score_src": models.score_src,
         "scoring": "fused_soft" if fused_scoring else "cnn",

@@ -16,7 +16,9 @@ views of seed 777, and ``*_best`` snapshots keep the best.
 
 The reference's ``--mesh``, ``--steps-per-call``, ``--stage-frames``,
 ``--score-head soft`` and ``--score-temp`` are not ported and are refused
-(ROADMAP.md).  ``--width-mult`` and ``--hypotheses`` scale the nets and
+(ROADMAP.md).  ``--arch`` picks the coordinate net (cli/common.py; an
+``obj_model_init`` snapshot of another arch is an error), and
+``--width-mult`` and ``--hypotheses`` scale freshly initialised nets and
 the pool (the reference's ``--width-mult`` and ``-rI``).
 
 Prints one JSON line: per-round objective, expected loss, entropy, valid
@@ -25,11 +27,13 @@ ms per round after the first, peak device memory, and the snapshots.
 
     python -m dsac_tpu_torch.cli.train_ransac --rounds 100
     python -m dsac_tpu_torch.cli.train_ransac --softam --rounds 100
+    python -m dsac_tpu_torch.cli.train_ransac --arch patch --rounds 100
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 import sys
@@ -40,13 +44,15 @@ import numpy as np
 import torch
 
 from dsac_tpu_torch import resolve_device
+from dsac_tpu_torch.cli.common import add_arch_args, coord_fn_for
 from dsac_tpu_torch.cli.serve import KERNELS
 from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
 from dsac_tpu_torch.data.synthetic import SyntheticScene
-from dsac_tpu_torch.models import DenseCoordNet, ScoreNet, init_like_flax
+from dsac_tpu_torch.models import (ScoreNet, coord_net_for_state,
+                                   init_like_flax, load_exact)
+from dsac_tpu_torch.models.coord_net import coord_apply, make_coord_net
 from dsac_tpu_torch.pipeline import evaluate_frame, process_frames_batched
-from dsac_tpu_torch.pipeline.train import (dense_coord_apply, e2e_step,
-                                           make_e2e_state)
+from dsac_tpu_torch.pipeline.train import e2e_step, make_e2e_state
 from dsac_tpu_torch.utils import checkpoint as ckpt
 from dsac_tpu_torch.utils.logging import TrainingLog, blue, green
 
@@ -73,7 +79,7 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
     ap.add_argument("--score-anchor", type=float, default=0.0)
     ap.add_argument("--synthetic", type=int, default=16,
                     help="training views drawn by random_pose")
-    ap.add_argument("--width-mult", type=float, default=1.0)
+    add_arch_args(ap)
     ap.add_argument("--hypotheses", type=int, default=256)
     ap.add_argument("--seed", type=int, default=1305)
     ap.add_argument("--out", default="./out")
@@ -92,17 +98,18 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
     return args
 
 
-def _init_net(out: str, name: str, net: torch.nn.Module, seed: int,
-              device: torch.device) -> torch.nn.Module:
-    """The net of snapshot ``name`` in ``out``, else Flax's default init
-    drawn from a generator seeded with ``seed`` (train_ransac.py:93-122
-    seeds 1 and 2)."""
+def _init_net(out: str, name: str, fresh: torch.nn.Module, load,
+              seed: int, device: torch.device) -> torch.nn.Module:
+    """The net that ``load`` builds from the parameters of snapshot
+    ``name`` in ``out``, else ``fresh`` with Flax's default init drawn
+    from a generator seeded with ``seed`` (train_ransac.py:87-122 seeds 1
+    and 2)."""
     try:
-        net.load_state_dict(ckpt.restore(out, name)["params"])
+        net = load(ckpt.restore(out, name)["params"])
         print(blue(f"Loaded {name}."))
     except FileNotFoundError:
         print(blue(f"No {name}; initialising."))
-        init_like_flax(net, torch.Generator().manual_seed(seed))
+        net = init_like_flax(fresh, torch.Generator().manual_seed(seed))
     return net.to(device)
 
 
@@ -127,17 +134,21 @@ def main(argv=None, softam: bool = False) -> dict:
     rng = np.random.default_rng(args.seed)
 
     wm = args.width_mult
-    coord_net = _init_net(args.out, ckpt.OBJ_INIT,
-                          DenseCoordNet(width=max(8, int(64 * wm))), 1,
-                          device)
-    score_net = _init_net(args.out, ckpt.SCORE_INIT, ScoreNet(width_mult=wm),
-                          2, device)
+    coord_net = _init_net(
+        args.out, ckpt.OBJ_INIT, make_coord_net(args.arch, wm),
+        lambda params: coord_net_for_state(params, args.arch), 1, device)
+    score_net = _init_net(
+        args.out, ckpt.SCORE_INIT, ScoreNet(width_mult=wm),
+        lambda params: load_exact(ScoreNet(width_mult=wm), params), 2,
+        device)
     state = make_e2e_state(coord_net, score_net)
 
     refine_mode = args.refine_mode
     if refine_mode == "auto":
         refine_mode = "implicit" if device.type == "cuda" else "unroll"
     print(blue(f"Refinement gradient mode: {refine_mode}"))
+    coord_apply_ = functools.partial(coord_apply,
+                                     patch_size=cfg.net.rgb_patch_size)
 
     obj_name = ckpt.OBJ_SOFTAM if args.softam else ckpt.OBJ_E2E
     score_name = ckpt.SCORE_SOFTAM if args.softam else ckpt.SCORE_E2E
@@ -178,7 +189,7 @@ def main(argv=None, softam: bool = False) -> dict:
                 gen = torch.Generator(device=device).manual_seed(7000 + i)
                 res = process_frames_batched(
                     scene.render(gt)[0],
-                    lambda im, pix: dense_coord_apply(coord_net, im, pix),
+                    coord_fn_for(coord_net, cfg),
                     cam, cfg, generator=gen, scoring="cnn",
                     score_fn=score_net, sampling=False, refine_all=True,
                     fused_refine=False)
@@ -205,7 +216,8 @@ def main(argv=None, softam: bool = False) -> dict:
             t0 = time.perf_counter()
             image = scene.render(gt)[0]
             state, loss, aux = e2e_step(
-                state, image, gt, cam, cfg, softam=args.softam,
+                state, image, gt, cam, cfg, coord_apply=coord_apply_,
+                softam=args.softam,
                 refine_mode=refine_mode, score_anchor=args.score_anchor,
                 generator=gen)
             rec = {"round": rnd, "objective": float(loss),
@@ -248,7 +260,7 @@ def main(argv=None, softam: bool = False) -> dict:
 
     later = [r["seconds"] * 1e3 for r in rounds[1:]]
     result = {
-        "metric": "train_ransac", "objective": tag,
+        "metric": "train_ransac", "objective": tag, "arch": args.arch,
         "refine_mode": refine_mode, "start_round": start,
         "rounds": rounds, "snapshots": snapshots,
         "ms_per_round_median": statistics.median(later) if later else None,

@@ -28,7 +28,7 @@ import torch
 from dsac_tpu_torch.config import Camera, DSACConfig
 from dsac_tpu_torch.geometry.loss import max_loss
 from dsac_tpu_torch.geometry.pose import Pose
-from dsac_tpu_torch.models.coord_net import gather_dense_coords
+from dsac_tpu_torch.models.coord_net import coord_apply as net_coord_apply
 from dsac_tpu_torch.pipeline.forward import (FrameDraws,
                                              process_frame_softam,
                                              process_frames_batched)
@@ -130,12 +130,6 @@ def make_e2e_state(coord_net: torch.nn.Module,
     return TrainState(coord_net, score_net, c_opt, s_opt, 0)
 
 
-def dense_coord_apply(net: torch.nn.Module, images: torch.Tensor,
-                      pix: torch.Tensor) -> torch.Tensor:
-    """DenseCoordNet read at the sampled pixels (cli/common.py:269-271)."""
-    return gather_dense_coords(net(images), pix, stride=8)
-
-
 def e2e_expected_loss(coord_fn: Callable, score_fn: Callable,
                       images: torch.Tensor, gt: Pose, cam: Camera,
                       cfg: DSACConfig, softam: bool = False,
@@ -201,7 +195,7 @@ def e2e_expected_loss(coord_fn: Callable, score_fn: Callable,
 
 def e2e_step(state: TrainState, images: torch.Tensor, gt: Pose,
              cam: Camera, cfg: DSACConfig,
-             coord_apply: CoordApply = dense_coord_apply,
+             coord_apply: CoordApply = net_coord_apply,
              softam: bool = False, refine_mode=False,
              score_anchor: float = 0.0, draws: FrameDraws = FrameDraws(),
              generator: torch.Generator | None = None

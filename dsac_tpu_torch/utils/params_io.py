@@ -17,8 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dsac_tpu_torch.models.coord_net import DenseCoordNet
-from dsac_tpu_torch.models.score_net import ScoreNet
+from dsac_tpu_torch.models import ScoreNet, coord_net_for_state, load_exact
 
 
 def load_params_npz(path: str | Path) -> dict[str, np.ndarray]:
@@ -27,27 +26,33 @@ def load_params_npz(path: str | Path) -> dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def _copy_layer(flat: dict[str, np.ndarray], name: str, layer: torch.nn.Module,
-                perm: tuple[int, ...]) -> None:
-    """Copy params|name|kernel (transposed by perm) and |bias into layer."""
-    kernel = flat[f"params|{name}|kernel"].astype(np.float32)
-    w = torch.from_numpy(kernel.transpose(perm).copy())
-    if w.shape != layer.weight.shape:
-        raise ValueError(f"{name}: kernel {tuple(w.shape)} does not fit "
-                         f"{tuple(layer.weight.shape)}")
-    layer.weight.copy_(w)
-    layer.bias.copy_(torch.from_numpy(
-        flat[f"params|{name}|bias"].astype(np.float32)))
+def state_from_flax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """The port's state dict (``convs.i.*``, ``dense.i.*``, f32) of a
+    Flax-layout flat dict: ``Conv_i`` HWIO kernels become OIHW, ``Dense_i``
+    (in, out) kernels (out, in)."""
+    state = {}
+    for key, arr in flat.items():
+        _params, layer, leaf = key.split("|")
+        group, idx = layer.split("_")
+        name = {"Conv": "convs", "Dense": "dense"}.get(group)
+        if name is None or leaf not in ("kernel", "bias"):
+            raise ValueError(f"no port name for parameter {key}")
+        a = arr.astype(np.float32)
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if group == "Conv" else a.T
+        state[f"{name}.{idx}.{'weight' if leaf == 'kernel' else 'bias'}"] = \
+            torch.from_numpy(np.ascontiguousarray(a))
+    return state
 
 
-def coord_net_from_flax(flat: dict[str, np.ndarray]) -> DenseCoordNet:
-    """A DenseCoordNet holding the Flax parameters, as f32 OIHW."""
-    width = flat["params|Conv_0|kernel"].shape[-1]
-    net = DenseCoordNet(width=width)
-    with torch.no_grad():
-        for i, conv in enumerate(net.convs):
-            _copy_layer(flat, f"Conv_{i}", conv, (3, 2, 0, 1))
-    return net
+def coord_net_from_flax(flat: dict[str, np.ndarray],
+                        arch: str | None = None) -> torch.nn.Module:
+    """The coordinate net holding the Flax parameters, as f32: its arch
+    read from them (models/__init__.py:coord_net_for_state) and, when
+    ``arch`` is given, checked against it; width (and for the patch net
+    the dense width) from Conv_0 (and Dense_0).  Parameters that do not
+    fit one net in full raise ValueError."""
+    return coord_net_for_state(state_from_flax(flat), arch)
 
 
 def score_net_from_flax(flat: dict[str, np.ndarray],
@@ -56,19 +61,14 @@ def score_net_from_flax(flat: dict[str, np.ndarray],
     and (out, in) dense weights; width_mult is read from Conv_9's width
     (512 x width_mult)."""
     width_mult = flat["params|Conv_9|kernel"].shape[-1] / 512
-    net = ScoreNet(width_mult=width_mult, dtype=dtype)
-    with torch.no_grad():
-        for i, conv in enumerate(net.convs):
-            _copy_layer(flat, f"Conv_{i}", conv, (3, 2, 0, 1))
-        for i, fc in enumerate(net.dense):
-            _copy_layer(flat, f"Dense_{i}", fc, (1, 0))
-    return net
+    return load_exact(ScoreNet(width_mult=width_mult, dtype=dtype),
+                      state_from_flax(flat))
 
 
 def to_flax_flat(net: torch.nn.Module,
                  values: dict[str, torch.Tensor] | None = None
                  ) -> dict[str, np.ndarray]:
-    """The Flax-layout flat dict of a DenseCoordNet's or ScoreNet's
+    """The Flax-layout flat dict of a coordinate net's or ScoreNet's
     parameters, or of ``values`` keyed like ``net.named_parameters()``
     (their gradients, say), as f32 numpy."""
     values = dict(net.named_parameters()) if values is None else values
@@ -99,10 +99,12 @@ def save_params_npz(path: str | Path, net: torch.nn.Module,
 
 
 def load_coord_net_npz(path: str | Path,
-                       device: torch.device | str = "cuda") -> DenseCoordNet:
-    """Read a coordinate-net artifact (e.g. artifacts/coord_e2e.npz)."""
+                       device: torch.device | str = "cuda",
+                       arch: str | None = None) -> torch.nn.Module:
+    """Read a coordinate-net artifact (e.g. artifacts/coord_e2e.npz, or
+    coord_e2e_patch.npz for the patch net), of ``arch`` if given."""
     from dsac_tpu_torch import resolve_device
-    return coord_net_from_flax(load_params_npz(path)).to(
+    return coord_net_from_flax(load_params_npz(path), arch).to(
         resolve_device(device)).eval()
 
 

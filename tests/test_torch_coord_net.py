@@ -83,7 +83,7 @@ def test_random_width_roundtrip(rng):
     """A narrow random net: the carry-over is exact (OIHW of HWIO)."""
     flat = {}
     cin = 3
-    for i, (cout, k, _s) in enumerate(DenseCoordNet(width=8).spec):
+    for i, (cout, k, *_) in enumerate(DenseCoordNet(width=8).spec):
         flat[f"params|Conv_{i}|kernel"] = rng.normal(
             size=(k, k, cin, cout)).astype(np.float16)
         flat[f"params|Conv_{i}|bias"] = rng.normal(size=cout).astype(

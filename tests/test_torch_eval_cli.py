@@ -220,7 +220,8 @@ def snapshots(tmp_path_factory):
 def args_for(out, model="endtoend", weights=None, score_weights=None):
     import argparse
     return argparse.Namespace(model=model, out=out and str(out),
-                              weights=weights, score_weights=score_weights)
+                              weights=weights, score_weights=score_weights,
+                              arch="dense", width_mult=1.0)
 
 
 def same_weights(a: torch.nn.Module, b: torch.nn.Module) -> bool:

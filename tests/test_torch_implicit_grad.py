@@ -48,11 +48,12 @@ from dsac_tpu_torch.geometry.gn import implicit_refine_step, refine_pose
 from dsac_tpu_torch.geometry.pose import Pose, pose_to_vec6
 from dsac_tpu_torch.geometry.rotation import so3_exp
 from dsac_tpu_torch.models import DenseCoordNet, ScoreNet, init_like_flax
+from dsac_tpu_torch.models.coord_net import coord_apply
 from dsac_tpu_torch.ops.gn_cuda import (InitSensitiveRefine,
                                         refine_init_sensitive,
                                         refine_pose_fused, refine_pose_ref)
 from dsac_tpu_torch.pipeline import forward as fwd
-from dsac_tpu_torch.pipeline.train import dense_coord_apply, e2e_expected_loss
+from dsac_tpu_torch.pipeline.train import e2e_expected_loss
 from test_torch_train import cosine_ratio, make_toy, port
 from torch_problems import one_torch_thread  # noqa: F401
 
@@ -278,7 +279,7 @@ class TestPipelineGrad:
         coord_net.zero_grad()
         score_net.zero_grad()
         obj, _ = e2e_expected_loss(
-            lambda im, pix: dense_coord_apply(coord_net, im, pix), score_net,
+            lambda im, pix: coord_apply(coord_net, im, pix), score_net,
             image, gt, cam, cfg, softam=softam, refine_mode=mode,
             generator=torch.Generator().manual_seed(11))
         obj.backward()

@@ -35,12 +35,11 @@ from dsac_tpu.ops import soft_inlier_scores as jax_soft_scores
 from dsac_tpu.pipeline.train import e2e_expected_loss as jax_e2e
 from dsac_tpu_torch.config import Camera, DSACConfig, PoseConfig
 from dsac_tpu_torch.geometry.pose import Pose
-from dsac_tpu_torch.models.coord_net import DenseCoordNet
+from dsac_tpu_torch.models.coord_net import DenseCoordNet, coord_apply
 from dsac_tpu_torch.ops.diffmap import soft_inlier_scores
 from dsac_tpu_torch.pipeline import FrameDraws
 from dsac_tpu_torch.pipeline.train import (ClippedSGD, clamp_grad,
                                            coord_l1_loss,
-                                           dense_coord_apply,
                                            e2e_expected_loss, e2e_step,
                                            make_e2e_state, score_l1_loss)
 from torch_problems import one_torch_thread  # noqa: F401
@@ -278,7 +277,7 @@ def test_bf16_layers_keep_f32_master_weights():
     net = DenseCoordNet(width=8)
     img = torch.rand(1, 64, 80, 3) * 255
     pix = torch.tensor([[[10, 20], [40, 33], [70, 60]]])
-    coord_l1_loss(dense_coord_apply(net, img, pix),
+    coord_l1_loss(coord_apply(net, img, pix),
                   torch.zeros(1, 3, 3)).backward()
     for name, p in net.named_parameters():
         assert p.dtype == torch.float32 and p.is_leaf, name
