@@ -107,23 +107,48 @@ stopped):
                   dense_s2d (DSAC, refine mode "implicit"), from the
                   committed weights written as init snapshots: a finite
                   objective and gradient, one refine launch a round, and
-                  the snapshots read back as nets of their arch.
+                  the snapshots read back as nets of their arch;
+21. scenes        each archetype of data/synthetic.py (room, repeat, bare,
+                  noisy, clutter, hard) rendered on the card, the first 8
+                  frames of seed 99 at full size: finite, RGB in [0, 255],
+                  depth > 0 (but the reference's own degenerate rays), and
+                  mean RGB, mean depth, the occluded and the gray share
+                  against the reference's (data/scene_frames.json);
+22. test_ransac_clutter  test_ransac --scene clutter --synthetic 24 --seed
+                  99 --fused-refine --rdraw 0 with the committed clutter
+                  weights, then with --select inlier;
+23. test_ransac_noisy  the same with --scene noisy and the noisy weights;
+24. test_ransac_repeat  --scene repeat --fused-scoring with
+                  coord_e2e_repeat_t10b.npz and the soft-inlier head;
+25. serve_scene   serve --scene clutter --synthetic 24 --seed 99 --queue 3
+                  --batch 8 with the clutter weights (fused soft,
+                  two-phase, verify_topk 4), and --no-fused-scoring;
+26. data_7scenes  export_synthetic (8 training and 16 test frames of the
+                  room) into a fresh runs/ directory, test_ransac --data
+                  on its test split with -c DIR/default.config and the
+                  room's weights, SevenScenesDataset.get_obj of 2 frames
+                  against the render's coordinates, and the PNG decoder
+                  that ran;
+27. train_scene   2 rounds of train_ransac --scene clutter (DSAC, refine
+                  mode "implicit") and of train_ransac_softam --scene
+                  noisy, from the archetypes' weights as init snapshots.
 
 The accuracy bars of phases 8-11 and 15-18 are the reference's accuracy
 on the CPU on the same frames (REF_* below) less 2 of 64 frames or 1 of
-16.
+16; those of phases 22-26 less 1 frame (REF_SCENE_ACCURACY).
 
 The kernels phase also holds the refine kernel's init-pose backward
 (ops/gn_cuda.py:InitSensitiveRefine, one launch on B x 12 probe poses)
 against its plain version and against autograd through the truncated
 PyTorch unroll, at the training shape (B = 1) and at B = 8.
 
-Before each of phases 4-20 (each variant of phase 11, each arch of phase
-20) the kernels' launch counters are set to 0, and they are read just
-after it, with the phase's peak device memory; each phase fails if a
-kernel of its path was never launched.  Then nvidia-smi's line, one JSON line of per-kernel numbers
-(launches summed over phases 4-20, by phase, and the kernels phase's
-check launches apart),
+Before each of phases 4-27 (each variant of phase 11, each arch of phase
+20, each run of phases 22-27) the kernels' launch counters are set to 0,
+and they are read just after it, with the phase's peak device memory;
+each phase fails if a kernel of its path was never launched.  Then
+nvidia-smi's line, one JSON line of per-kernel numbers (launches summed
+over phases 4-27, by phase, and the kernels phase's check launches
+apart),
 and the last line
 {"ok": true, "device": {...}}.  Any failed bar or error exits non-zero
 before that last line.  Without a CUDA device, or without the repository
@@ -204,6 +229,56 @@ CTX_FRAMES = 16  # serve_ctx: a fresh init, no accuracy bar
 TRAIN_ARCHS = ("patch", "dense_s2d")  # train_arch, TRAIN_ARCH_ROUNDS each
 TRAIN_ARCH_ROUNDS = 2
 
+# The scene and data phases: the reference's accuracy on the CPU
+# on the same frames with the same weights, printed by
+# `PYTHONPATH=. python tests/test_torch_scene_cli.py VARIANT`; name ->
+# (reference accuracy, frames).  Each run may lose 1 frame against it.
+# The frames are the first 24 of SyntheticSource's seed 99 of the
+# archetype (the test split that judged the archetype weights): the
+# reference's poses and occluders (data/scene_frames.json).  noisy's noise
+# is drawn on the card, not the reference's: its bar is the lowest of the
+# reference's accuracies over 4 noise draws at the same poses.
+REF_SCENE_ACCURACY = {
+    # test_ransac --fused-refine -rdraw 0, the clutter weights (score CNN)
+    "test_ransac_clutter": (0.75, 24),
+    "test_ransac_clutter_select_inlier": (1.0, 24),
+    # the noisy weights, over 4 noise draws: 0.708, 0.708, 0.667, 0.667
+    "test_ransac_noisy": (0.6666666666666666, 24),
+    # --fused-scoring with coord_e2e_repeat_t10b.npz, the soft head, on
+    # the reference's frames as its CLI renders them (jitted): 4 of 24.
+    # The walls lie at multiples of the texture's 500 mm period, so f32
+    # rounding picks each wall pixel's side of the wrap, and no two
+    # renders agree there (the reference's eager render of the same
+    # poses gives 2 of 24); the bar is still the CLI's, less 1 frame
+    "test_ransac_repeat": (0.16666666666666666, 24),
+    # serve, two-phase sampling, the top 4 refined, the clutter weights:
+    # fused soft scoring, and the score CNN
+    "serve_scene": (0.9583333333333334, 24),
+    "serve_scene_cnn": (0.9166666666666666, 24),
+    # test_ransac --data on the test split of an export of the room (16
+    # frames of seed 99) with the room's weights
+    "data_7scenes": (1.0, 16),
+}
+SCENE_FRAMES = 8  # scenes: the first 8 frames of seed 99 per archetype
+# scenes: each archetype's statistics against those of the reference that
+# data/scene_frames.json records (tests/test_torch_scenes.py); mean RGB of
+# 255, mean positive depth in mm, shares of pixels.  Under a texture period
+# the walls (at 0, 3000 and 4000 mm, multiples of the 500 mm period) read
+# the wrap's either side by f32 rounding, pixel by pixel, so mean RGB gets
+# PERIOD_RGB_TOL there (the port on the CPU: 0.49 from the reference).
+SCENE_STAT_TOL = {"mean_rgb": 0.1, "mean_depth_mm": 0.1,
+                  "occluded_share": 1e-3, "gray_share": 1e-3}
+PERIOD_RGB_TOL = 2.0
+EXPORT_TRAIN, EXPORT_TEST = 8, 16  # data_7scenes: the export's frames
+# data_7scenes: SevenScenesDataset.get_obj of 2 frames against the render's
+# coordinates (tests/test_data_io.py:228-240): median and 95% error in mm
+OBJ_MEDIAN_MM, OBJ_P95_MM = 10.0, 40.0
+# data_7scenes: the port's codec's decode of a 640 x 480 frame in each row
+# filter, timed DECODE_REPS times on the host
+DECODE_FILTERS = ("none", "sub", "up", "average", "paeth")
+DECODE_REPS = 3
+TRAIN_SCENE_ROUNDS = 2
+
 # On the serve path's P3P pool a kernel may miss its bar against the
 # plain version in f64 on at most this many more elements than the plain
 # version's own f32 result does.
@@ -237,7 +312,15 @@ PATHS = {"serve": ("p3p", "soft_inlier_score", "refine_irls"),
          "serve_patch_cnn": ("p3p", "diffmap", "refine_irls"),
          "test_ransac_patch": ("diffmap", "refine_irls"),
          "serve_ctx": ("p3p", "soft_inlier_score", "refine_irls"),
-         "train_arch": ("refine_irls",)}
+         "train_arch": ("refine_irls",),
+         "scenes": (),
+         "test_ransac_clutter": ("diffmap", "refine_irls"),
+         "test_ransac_noisy": ("diffmap", "refine_irls"),
+         "test_ransac_repeat": ("soft_inlier_score", "refine_irls"),
+         "serve_scene": ("p3p", "soft_inlier_score", "diffmap",
+                         "refine_irls"),
+         "data_7scenes": ("diffmap", "refine_irls"),
+         "train_scene": ("refine_irls", "refine_init_backward")}
 # test_ransac_variants: each variant's flags and path, and the kernels it
 # must not launch (hard refinement runs in PyTorch)
 VARIANTS = {"model_none": (["--model", "none"], ("diffmap", "refine_irls"),
@@ -1195,11 +1278,13 @@ def softam_average_backward(dev, coord_net, score_net, scene, cfg,
 
 
 def train_phase(softam: bool, arch: str = "dense",
-                rounds: int = TRAIN_ROUNDS) -> tuple[dict, list[str]]:
-    """``rounds`` rounds of train_ransac --arch ``arch`` from the trained
-    weights, written as the port's init snapshots into a fresh runs/
-    directory; the end-to-end snapshots must read back as nets of the
-    arch."""
+                rounds: int = TRAIN_ROUNDS,
+                scene: str = "room") -> tuple[dict, list[str]]:
+    """``rounds`` rounds of train_ransac --arch ``arch`` --scene ``scene``
+    from the trained weights (those of the archetype for another scene
+    than the room), written as the port's init snapshots into a fresh
+    runs/ directory; the end-to-end snapshots must read back as nets of
+    the arch."""
     from dsac_tpu_torch.cli import train_ransac
     from dsac_tpu_torch.cli.common import ART_SUFFIX
     from dsac_tpu_torch.models import ScoreNet, coord_net_for_state
@@ -1207,20 +1292,21 @@ def train_phase(softam: bool, arch: str = "dense",
     from dsac_tpu_torch.utils.params_io import (load_coord_net_npz,
                                                 load_score_net_npz)
 
-    tag = ("softam" if softam else "e2e") + ART_SUFFIX[arch]
+    suffix = ART_SUFFIX[arch] + ("" if scene == "room" else f"_{scene}")
+    tag = ("softam" if softam else "e2e") + suffix
     out = REPO / "runs" / f"chip_smoke_train_{tag}"
     shutil.rmtree(out, ignore_errors=True)
     art = REPO / "artifacts"
     for name, net in ((ckpt.OBJ_INIT, load_coord_net_npz(
-            art / f"coord_e2e{ART_SUFFIX[arch]}.npz", "cpu", arch)),
+            art / f"coord_e2e{suffix}.npz", "cpu", arch)),
                       (ckpt.SCORE_INIT, load_score_net_npz(
-                          art / f"score_e2e{ART_SUFFIX[arch]}.npz", "cpu"))):
+                          art / f"score_e2e{suffix}.npz", "cpu"))):
         ckpt.save(out, name, {"params": net.state_dict()})
     every = max(1, rounds // 2)
     res = train_ransac.main(
         ["--rounds", str(rounds), "--snapshot-every", str(every), "--out",
          str(out), "--device", "cuda", "--refine-mode", "auto", "--arch",
-         arch] + (["--softam"] if softam else []))
+         arch, "--scene", scene] + (["--softam"] if softam else []))
     problems = []
     per_round = [r["launches"] for r in res["rounds"]]
     want_fwd, want_bwd = (2, 1) if softam else (1, 0)
@@ -1247,7 +1333,10 @@ def train_phase(softam: bool, arch: str = "dense",
             and snap_c["step"] == snap_s["step"] == rounds):
         problems.append(f"snapshots {res['snapshots']}, restored steps "
                         f"{snap_c['step']}, {snap_s['step']}")
-    summary = {k: res[k] for k in ("objective", "arch", "refine_mode",
+    if res["scene"] != scene:
+        problems.append(f"trained on scene {res['scene']}, not {scene}")
+    summary = {k: res[k] for k in ("objective", "arch", "scene",
+                                   "frame_set", "refine_mode",
                                    "ms_per_round_median", "first_round_ms",
                                    "peak_memory_bytes", "snapshots")}
     summary["launches_per_round"] = per_round
@@ -1272,6 +1361,195 @@ def train_arch() -> tuple[dict, list[str]]:
         results[arch] = {"seconds": seconds, "launches": launches,
                          "phase_peak_memory_bytes": peak, **res}
     return results, problems
+
+
+def scenes(dev) -> tuple[dict, list[str]]:
+    """Each archetype at full size on the card, the first SCENE_FRAMES
+    frames of seed 99: finite, RGB in [0, 255], depth > 0 but for the
+    reference's own degenerate rays (at most one a frame; a ray component
+    in (-1e-9, 0] exits through a wall behind the camera, as in the
+    reference, tests/test_torch_scenes.py:frame_stats), and the statistics
+    of data/scene_frames.json within SCENE_STAT_TOL."""
+    import torch
+    from dsac_tpu_torch.data.synthetic import (ARCHETYPES, SCENE_FIXTURE,
+                                               Effects, frame_set,
+                                               make_scene, render_frames)
+    ref = json.loads(SCENE_FIXTURE.read_text())["stats"]
+    results, problems = {}, []
+    idx = list(range(SCENE_FRAMES))
+    for name in ARCHETYPES:
+        scene = make_scene(name, device=dev)
+        fs = frame_set(scene, 99, SCENE_FRAMES)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            rgb, depth, coords, pose = render_frames(scene, fs, idx)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            wall = scene.render(pose)[1]
+            boxes = (scene.render(pose, Effects(fs.occluders, None, None))[1]
+                     if fs.occluders is not None else wall)
+        positive = depth > 0
+        got = {"mean_rgb": float(rgb.double().mean()),
+               "mean_depth_mm": float(depth[positive].double().mean()),
+               "degenerate_pixels": int((~positive).sum()),
+               "occluded_share": float((boxes < wall - 1.0).double().mean()),
+               "gray_share": float(((rgb - 127.5).abs() < 4.0).all(-1)
+                                   .double().mean())}
+        found = []
+        if not all(bool(torch.isfinite(x).all()) for x in (rgb, depth,
+                                                           coords)):
+            found.append("non-finite render")
+        if not (float(rgb.min()) >= 0.0 and float(rgb.max()) <= 255.0):
+            found.append("RGB outside [0, 255]")
+        if got["degenerate_pixels"] > SCENE_FRAMES:
+            found.append(f"{got['degenerate_pixels']} pixels of depth <= 0")
+        for k, tol in SCENE_STAT_TOL.items():
+            if k == "mean_rgb" and scene.knobs.texture_period_mm > 0:
+                tol = PERIOD_RGB_TOL
+            if not abs(got[k] - ref[name][k]) <= tol:
+                found.append(f"{k} {got[k]} against the reference's "
+                             f"{ref[name][k]} (bar {tol})")
+        problems += [f"{name}: {x}" for x in found]
+        results[name] = {"frame_set": fs.origin, "render_seconds": seconds,
+                         **got, "reference": ref[name]}
+    return results, problems
+
+
+def eval_runs(runs: dict) -> tuple[dict, dict, list[str]]:
+    """Entry-point runs of one phase, each with its counters set to 0:
+    name -> (entry, argv, reference-accuracy key, path, kernels absent, or
+    None for a serve run and its batches).  Returns the launches summed
+    over the runs, each run's numbers, and the problems; each run may lose
+    1 frame against REF_SCENE_ACCURACY."""
+    from dsac_tpu_torch.cli import serve
+    total, details, problems = {k: 0 for k in serve.KERNELS}, {}, []
+    for name, (entry, argv, ref_key, path, absent) in runs.items():
+        res, launches, seconds, peak = run_phase(lambda: entry(argv),
+                                                 serve.KERNELS)
+        for k, n in launches.items():
+            total[k] += n
+        ref, frames = REF_SCENE_ACCURACY[ref_key]
+        if isinstance(absent, int):  # a serve run of ``absent`` batches
+            found = serve_problems(res, launches, path, absent,
+                                   ref - 1 / frames,
+                                   f" (reference {ref} less 1 of {frames})")
+        else:
+            found = eval_problems(res, launches, path, absent, frames, ref,
+                                  1)
+        if res["frames"] != frames:
+            found.append(f"{res['frames']} frames, not {frames}")
+        problems += [f"{name}: {x}" for x in found]
+        details[name] = {"seconds": seconds, "launches": launches,
+                         "peak_memory_bytes": peak, "scene": res["scene"],
+                         "frame_set": res["frame_set"],
+                         "accuracy_5cm5deg": res["accuracy_5cm5deg"],
+                         "reference_accuracy": ref,
+                         **({"reloc_per_s": res["reloc_per_s"]}
+                            if "reloc_per_s" in res else
+                            {"tag": res["tag"],
+                             "test_ransac_seconds": res["seconds"]})}
+    return total, details, problems
+
+
+def data_7scenes() -> tuple[dict, dict, list[str]]:
+    """export_synthetic into a fresh runs/ directory, test_ransac on its
+    test split with the room's weights, get_obj of 2 frames against the
+    render's coordinates, and the PNG decoder that ran."""
+    import numpy as np
+    from dsac_tpu_torch.cli import export_synthetic, test_ransac
+    from dsac_tpu_torch.cli.common import SyntheticSource
+    from dsac_tpu_torch.config import DataConfig
+    from dsac_tpu_torch.data.seven_scenes import SevenScenesDataset
+    from dsac_tpu_torch.data.synthetic import make_scene
+    from dsac_tpu_torch.utils import native_io
+    out = REPO / "runs" / "chip_smoke_data"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    export_synthetic.main(["--out", str(out), "--train-frames",
+                           str(EXPORT_TRAIN), "--test-frames",
+                           str(EXPORT_TEST), "--device", "cuda"])
+    export_seconds = time.perf_counter() - t0
+    split = out / "test" / "synth"
+    total, details, problems = eval_runs({"test_ransac": (
+        test_ransac.main, ["--data", str(split), "-c",
+                           str(out / "default.config"), "--fused-refine",
+                           "--rdraw", "0", "--device", "cuda"],
+        "data_7scenes", PATHS["data_7scenes"],
+        ("soft_inlier_score", "p3p", "irls_stats"))})
+    ds = SevenScenesDataset(split, config=DataConfig(raw_data=False))
+    source = SyntheticSource(2, 99, make_scene("room", device="cuda"))
+    errors = []
+    for i in range(2):
+        err = np.linalg.norm(ds.get_obj(i) - source.get(i).obj.cpu().numpy(),
+                             axis=-1)[ds.get_depth(i) > 0]
+        errors.append({"median_mm": float(np.median(err)),
+                       "p95_mm": float(np.percentile(err, 95))})
+        if not (errors[-1]["median_mm"] < OBJ_MEDIAN_MM
+                and errors[-1]["p95_mm"] < OBJ_P95_MM):
+            problems.append(f"get_obj({i}) against the render: "
+                            f"{errors[-1]} (bars {OBJ_MEDIAN_MM}, "
+                            f"{OBJ_P95_MM} mm)")
+    # the export's row filters (adaptive, as PIL writes 7-Scenes-like
+    # files), and the port's codec's host time to decode a frame of each
+    # filter; the median of DECODE_REPS
+    used = {}
+    for sub in ("rgb_noseg", "depth_noseg"):
+        counts = np.zeros(5, np.int64)
+        for f in sorted((split / sub).glob("*.png")):
+            rows = native_io.row_filters(f.read_bytes())
+            counts += np.bincount(rows, minlength=5)
+        used[sub] = dict(zip(DECODE_FILTERS, counts.tolist()))
+    if not all(used[sub]["average"] + used[sub]["paeth"] > 0
+               for sub in used):
+        problems.append(f"the export has no average or Paeth rows: {used}")
+    # and the average and Paeth rows of each encoding, which decide
+    # whether the codec undoes it a row or a diagonal at a time
+    decode_ms, slow_rows = {}, {}
+    for image, sub in ((ds.get_rgb(0), "rgb"),
+                       (ds.get_depth(0), "depth")):
+        decode_ms[sub], slow_rows[sub] = {}, {}
+        for kind, name in [*enumerate(DECODE_FILTERS),
+                           ("adaptive", "adaptive")]:
+            data = native_io.encode_png(image, kind)
+            times = []
+            for _ in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                back = native_io.decode_png(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(back, image):
+                problems.append(f"the codec's {sub} frame in filter {name} "
+                                "does not decode to itself")
+            decode_ms[sub][name] = float(np.median(times))
+            slow_rows[sub][name] = int((native_io.row_filters(data)
+                                        >= 3).sum())
+    return total, {"export_seconds": export_seconds,
+                   "decoder": native_io.decoder(), "get_obj": errors,
+                   "export_row_filters": used, "decode_host_ms": decode_ms,
+                   "decode_slow_rows": slow_rows,
+                   **details["test_ransac"]}, problems
+
+
+def train_scene() -> tuple[dict, dict, list[str]]:
+    """TRAIN_SCENE_ROUNDS rounds of train_ransac --scene clutter (DSAC)
+    and of train_ransac_softam --scene noisy, from the archetypes'
+    weights, each with its counters set to 0."""
+    from dsac_tpu_torch.cli import serve
+    total, details, problems = {k: 0 for k in serve.KERNELS}, {}, []
+    for name, softam, scene in (("dsac_clutter", False, "clutter"),
+                                ("softam_noisy", True, "noisy")):
+        (res, found), launches, seconds, peak = run_phase(
+            lambda: train_phase(softam, "dense", TRAIN_SCENE_ROUNDS, scene),
+            serve.KERNELS)
+        path = ("refine_irls", "refine_init_backward") if softam else \
+            ("refine_irls",)
+        found += [f"{k} kernel never launched" for k in path
+                  if launches[k] == 0]
+        problems += [f"{name}: {x}" for x in found]
+        for k, n in launches.items():
+            total[k] += n
+        details[name] = {"seconds": seconds, "launches": launches,
+                         "phase_peak_memory_bytes": peak, **res}
+    return total, details, problems
 
 
 def main() -> int:
@@ -1531,6 +1809,80 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    # the data layer: the archetypes and a 7-Scenes-layout export
+    (results_scenes, problems), launches, seconds, _peak = run_phase(
+        lambda: scenes(dev), serve.KERNELS)
+    by_phase["scenes"] = launches
+    emit({"phase": "scenes", "seconds": seconds, "launches": launches,
+          "frames": SCENE_FRAMES, "scenes": results_scenes})
+    if problems:
+        print("chip_smoke: scenes failed: " + "; ".join(problems),
+              file=sys.stderr)
+        return 1
+
+    scene_args = ["--synthetic", "24", "--seed", "99", "--device", "cuda"]
+    eval_scene = scene_args + ["--fused-refine", "--rdraw", "0"]
+    art = REPO / "artifacts"
+
+    def weights(arch_suffix: str, score: bool = True) -> list[str]:
+        return (["--weights", str(art / f"coord_e2e{arch_suffix}.npz")]
+                + (["--score-weights", str(art / f"score_e2e{arch_suffix}"
+                                                ".npz")] if score else []))
+
+    absent = ("soft_inlier_score", "p3p", "irls_stats")
+    scene_phases = {
+        "test_ransac_clutter": {
+            "select_score": (test_ransac.main, eval_scene + [
+                "--scene", "clutter"] + weights("_clutter"),
+                "test_ransac_clutter", PATHS["test_ransac_clutter"], absent),
+            "select_inlier": (test_ransac.main, eval_scene + [
+                "--scene", "clutter", "--select", "inlier"]
+                + weights("_clutter"), "test_ransac_clutter_select_inlier",
+                PATHS["test_ransac_clutter"], absent)},
+        "test_ransac_noisy": {"noisy": (test_ransac.main, eval_scene + [
+            "--scene", "noisy"] + weights("_noisy"), "test_ransac_noisy",
+            PATHS["test_ransac_noisy"], absent)},
+        "test_ransac_repeat": {"repeat_soft_head": (
+            test_ransac.main, eval_scene + ["--scene", "repeat",
+                                            "--fused-scoring"]
+            + weights("_repeat_t10b", score=False), "test_ransac_repeat",
+            PATHS["test_ransac_repeat"], ("diffmap", "p3p", "irls_stats"))},
+        "serve_scene": {
+            "fused_soft": (serve.main, scene_args + [
+                "--scene", "clutter", "--queue", "3", "--batch", "8",
+                "--reps", "1"] + weights("_clutter"), "serve_scene",
+                ("p3p", "soft_inlier_score", "refine_irls"), 2 * 3),
+            "score_cnn": (serve.main, scene_args + [
+                "--scene", "clutter", "--queue", "3", "--batch", "8",
+                "--reps", "1", "--no-fused-scoring"] + weights("_clutter"),
+                "serve_scene_cnn", ("p3p", "diffmap", "refine_irls"),
+                2 * 3)},
+    }
+    scene_results = {}
+    for name, runs in scene_phases.items():
+        phase_launches, details, problems = eval_runs(runs)
+        by_phase[name] = phase_launches
+        for k, n in phase_launches.items():
+            total[k] += n
+        scene_results[name] = details
+        emit({"phase": name, "launches": phase_launches, "runs": details})
+        if problems:
+            print(f"chip_smoke: {name} failed: " + "; ".join(problems),
+                  file=sys.stderr)
+            return 1
+    for name, fn in (("data_7scenes", data_7scenes),
+                     ("train_scene", train_scene)):
+        phase_launches, details, problems = fn()
+        by_phase[name] = phase_launches
+        for k, n in phase_launches.items():
+            total[k] += n
+        scene_results[name] = details
+        emit({"phase": name, "launches": phase_launches, **details})
+        if problems:
+            print(f"chip_smoke: {name} failed: " + "; ".join(problems),
+                  file=sys.stderr)
+            return 1
+
     emit({"phase": "summary",
           "reloc_per_s": {k: results[k]["reloc_per_s"]
                           for k in ("serve", "serve_cnn", "serve_fixed_t",
@@ -1542,6 +1894,13 @@ def main() -> int:
               **{f"test_ransac_{v}": x["accuracy_5cm5deg"]
                  for v, x in variants.items()}},
           "test_ransac_accuracy_select_inlier": inlier["accuracy_5cm5deg"],
+          "scene_accuracy_5cm5deg": {
+              f"{phase}.{run}": x["accuracy_5cm5deg"]
+              for phase, runs in scene_results.items()
+              if phase.startswith(("test_ransac", "serve"))
+              for run, x in runs.items()},
+          "data_7scenes_accuracy_5cm5deg":
+              scene_results["data_7scenes"]["accuracy_5cm5deg"],
           "reference_accuracy": {
               "test_ransac": REF_TEST_RANSAC_ACCURACY,
               "serve_softam": REF_SERVE_SOFTAM_ACCURACY,
@@ -1549,7 +1908,8 @@ def main() -> int:
               "test_ransac_softam": REF_TEST_RANSAC_SOFTAM_ACCURACY,
               **{f"test_ransac_{v}": x
                  for v, x in REF_VARIANT_ACCURACY.items()},
-              **{k: ref for k, (ref, _n) in REF_ARCH_ACCURACY.items()}}})
+              **{k: ref for k, (ref, _n) in REF_ARCH_ACCURACY.items()},
+              **{k: ref for k, (ref, _n) in REF_SCENE_ACCURACY.items()}}})
 
     for row in rows:
         row["launches"] = total[row["name"]]

@@ -13,6 +13,8 @@ reference it keeps as its own copy.
 Layer map (mirrors ``dsac_tpu``):
 
   config        Camera, PoseConfig, DataConfig, NetConfig, DSACConfig
+  flags         the reference's config files and short flags (-c, -fl,
+                -rI, -rdraw, ...)
   geometry/     pose math and vec6, P3P (differentiable, with the
                 reference's gradient cuts), Gauss-Newton refinement and
                 the implicit step, pose errors
@@ -22,16 +24,19 @@ Layer map (mirrors ``dsac_tpu``):
                 IRLS statistics
   models/       DenseCoordNet and ScoreNet (bf16 convolutions, f32
                 master weights)
-  data/         the default synthetic room, rendered on the device, and
-                its random training views; 7-Scenes pose files
+  data/         the synthetic room and its archetypes, rendered on the
+                device, with the reference's frame sets; 7-Scenes-layout
+                datasets and pose files
   pipeline/     batched DSAC and SoftAM forward passes and their refine
                 modes (the hard-threshold one too), evaluation, end-to-end
                 training
   utils/        npz weights (read and write), snapshots, training and
-                evaluation logs, timing on the card
+                evaluation logs, timing on the card, PNG decoding and
+                prefetch (native library or the port's codec)
   cli/          serve, profile_serve, profile_kernels, test_ransac,
                 test_ransac_softam, train_ransac, train_ransac_softam,
-                and their model selection (common)
+                export_synthetic, link_7scenes, and their frame sources
+                and model selection (common)
 """
 
 __version__ = "0.1.0"

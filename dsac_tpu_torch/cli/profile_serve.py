@@ -6,7 +6,10 @@ and the score CNN; or, with ``--train dsac|softam``, for
 one end-to-end training round of ``train_ransac`` at the reference's
 configuration (the coordinate net on 640x480, ScoreNet 1.0, 256
 hypotheses of 16 attempts, refine mode ``implicit``) from the trained
-weights of ``artifacts/``, on fixture frame 0.  ``--arch`` picks the
+weights of ``artifacts/``, on frame 0.  The frames are those of the
+serve entry point: ``--scene``, ``--seed`` and ``--data`` (with the
+reference's short flags and ``-c``) pick them, by default the bench
+frames of the room (cli/common.py).  ``--arch`` picks the
 coordinate net and its artifacts (cli/common.py); an arch without
 committed weights (``dense_ctx``) runs a fresh init at ``--width-mult``
 and, for serving, the soft-inlier head instead of a score CNN; for every
@@ -35,6 +38,7 @@ Prints one JSON line (and writes it to ``--out`` when given).
     python -m dsac_tpu_torch.cli.profile_serve --steps 8 --softam
     python -m dsac_tpu_torch.cli.profile_serve --steps 4 --train softam
     python -m dsac_tpu_torch.cli.profile_serve --steps 8 --arch patch
+    python -m dsac_tpu_torch.cli.profile_serve --steps 8 --scene clutter
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from pathlib import Path
 import torch
 
 from dsac_tpu_torch.cli import common, serve
+from dsac_tpu_torch.flags import parse_with_flags
 from dsac_tpu_torch.models.coord_net import PatchCoordNet
 from dsac_tpu_torch.utils.timing import (device_us, events_ms,
                                         is_device_event, profile)
@@ -92,11 +97,10 @@ def breakdown(fn, steps: int, unit: str, unit_ms: float) -> dict:
 
 
 def train_round(objective: str, steps: int, arch: str,
-                width_mult: float) -> dict:
-    """The breakdown of one training round (``--train``)."""
-    from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
-    from dsac_tpu_torch.data.synthetic import SyntheticScene
-    from dsac_tpu_torch.geometry.pose import Pose
+                width_mult: float, args) -> dict:
+    """The breakdown of one training round (``--train``) on frame 0 of
+    the frames of ``args`` (``--scene``, ``--seed``, ``--data`` and the
+    short flags)."""
     from dsac_tpu_torch.models import ScoreNet, init_like_flax
     from dsac_tpu_torch.models.coord_net import make_coord_net
     from dsac_tpu_torch.pipeline.train import (e2e_expected_loss, e2e_step,
@@ -105,13 +109,10 @@ def train_round(objective: str, steps: int, arch: str,
                                                 load_score_net_npz)
 
     dev = torch.device("cuda")
-    data = DataConfig()
-    cfg = DSACConfig(data=data, pose=PoseConfig())
-    cam = data.camera()
-    scene = SyntheticScene(data.image_width, data.image_height,
-                           data.focal_length, device=dev)
-    gt = Pose(scene.bench_poses.R[:1], scene.bench_poses.t[:1])
-    image = scene.render(gt)[0]
+    cfg = args.cfg
+    cam = cfg.data.camera()
+    source = common.frame_source(args, cfg, dev)
+    image, gt = source.batch([0])
     suffix = common.ART_SUFFIX[arch]
     if arch == UNTRAINED:
         gen = torch.Generator().manual_seed(1)
@@ -142,6 +143,7 @@ def train_round(objective: str, steps: int, arch: str,
     torch.cuda.synchronize()
     round_ms = events_ms(round_, steps)
     return {"metric": "train_round_breakdown", "objective": objective,
+            "scene": source.name,
             "arch": arch, "coord_weights": "random" if arch == UNTRAINED
             else f"coord_e2e{suffix}",
             "round_ms": round_ms, "forward_ms": events_ms(forward, steps),
@@ -160,11 +162,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--train", choices=("dsac", "softam"), default=None,
                     help="profile a training round of this objective")
     common.add_arch_args(ap)
-    args = ap.parse_args(argv)
+    common.add_data_args(ap, synthetic=BATCH, seed=0)
+    args, args.cfg, _strings = parse_with_flags(ap, argv)
     if args.train:
         result = {"device": torch.cuda.get_device_name(0),
                   "steps": args.steps, **train_round(
-                      args.train, args.steps, args.arch, args.width_mult)}
+                      args.train, args.steps, args.arch, args.width_mult,
+                      args)}
     else:
         result = serve_batch(args)
     line = json.dumps(result)
@@ -176,15 +180,18 @@ def main(argv=None) -> dict:
 
 
 def serve_batch(args) -> dict:
-    """The breakdown of one serve batch."""
+    """The breakdown of one serve batch of the frames of ``args``."""
     fresh = args.arch == UNTRAINED
     if fresh:  # an empty run directory: a fresh init, the soft head
         empty = REPO / "runs" / "profile_serve_fresh"
         empty.mkdir(parents=True, exist_ok=True)
     st = serve.stage(serve.parse_args([
-        "--synthetic", str(BATCH), "--batch", str(BATCH), "--queue", "1",
+        "--synthetic", str(args.synthetic), "--batch", str(BATCH),
+        "--queue", "1",
         "--device", "cuda", "--arch", args.arch,
-        "--width-mult", str(args.width_mult)]
+        "--width-mult", str(args.width_mult), "--scene", args.scene,
+        "--seed", str(args.seed)]
+        + (["--data", args.data] if args.data else []) + args.flag_argv
         + ([] if args.fused_scoring else ["--no-fused-scoring"])
         + (["--softam"] if args.softam else [])
         + (["--out", str(empty)] if fresh else [])))
@@ -218,6 +225,8 @@ def serve_batch(args) -> dict:
         "device": torch.cuda.get_device_name(0),
         "scoring": "fused_soft" if args.fused_scoring else "cnn",
         "variant": "softam" if args.softam else "dsac",
+        "scene": st.source.name,
+        "frame_set": st.source.frame_set,
         "arch": args.arch, "coord_weights": "random" if fresh else
         f"coord_e2e{common.ART_SUFFIX[args.arch]}",
         "batch": B, "steps": args.steps,

@@ -1,9 +1,13 @@
 """Relocalisation serving on one GPU (port of dsac_tpu/cli/serve.py's
 single-chip path).
 
-Renders ``--synthetic N`` frames of the default room at the bench poses
-(data/room_default.json, the ground truth), stages a queue of
-``--queue`` batches of ``--batch`` frames on the device, and serves them:
+Takes the frames of ``--data`` (a 7-Scenes-layout split; its intrinsics
+and ``rd`` from ``-c DIR/default.config`` and the reference's short
+flags) or ``--synthetic N`` frames of the archetype ``--scene`` of the
+frame set of ``--seed`` (cli/common.py; seed 0, the default, is the
+bench poses of data/room_default.json, the ground truth), stages a queue
+of ``--queue`` batches of ``--batch`` frames on the device, cycling
+through the frames, and serves them:
 the coordinate net of ``--arch`` (the stride-8 map of a dense net
 gathered at the 40x40 sampled pixels, or the patch net on the 1,600
 patches centred there) -> P3P sampling of 256 hypotheses with ``--attempts``
@@ -29,13 +33,19 @@ the reference's name of ``--two-phase``.
 
 Prints one JSON line: throughput, accuracy at 5 cm / 5 deg of the last
 pass's poses, median errors, whether every pose and score of the last
-pass is finite, the arch, and each kernel's launch count; with
-``--softam`` also ``"variant": "softam"``.
+pass is finite, the arch, the scene (``"data"`` with ``--data``) and
+which frames were served (``frame_set``: "reference", "drawn" or
+"dataset"), and each kernel's launch count; with ``--softam`` also
+``"variant": "softam"``.
 
     python -m dsac_tpu_torch.cli.serve --synthetic 64 --queue 8 --batch 8
     python -m dsac_tpu_torch.cli.serve --no-fused-scoring
     python -m dsac_tpu_torch.cli.serve --softam
     python -m dsac_tpu_torch.cli.serve --arch patch
+    python -m dsac_tpu_torch.cli.serve --scene clutter --synthetic 24 \
+        --seed 99 --weights artifacts/coord_e2e_clutter.npz
+    python -m dsac_tpu_torch.cli.serve --data DIR/test/synth \
+        -c DIR/default.config
 """
 
 from __future__ import annotations
@@ -50,11 +60,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from dsac_tpu_torch import resolve_device
-from dsac_tpu_torch.cli.common import (add_arch_args, add_model_args,
-                                       coord_fn_for, load_eval_models)
-from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
+from dsac_tpu_torch.cli.common import (add_arch_args, add_data_args,
+                                       add_model_args, apply_model_flags,
+                                       coord_fn_for, frame_source,
+                                       load_eval_models)
+from dsac_tpu_torch.config import DSACConfig
 from dsac_tpu_torch.data.seven_scenes import write_pose_file
-from dsac_tpu_torch.data.synthetic import SyntheticScene
+from dsac_tpu_torch.flags import parse_with_flags
 from dsac_tpu_torch.geometry.loss import is_correct, pose_errors
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.models.score_net import ScoreNet
@@ -76,8 +88,7 @@ KERNELS = {"p3p": p3p_solve, "soft_inlier_score": soft_inlier_scores,
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--synthetic", type=int, default=64,
-                    help="distinct fixture frames to serve (at most 64)")
+    add_data_args(ap, synthetic=64, seed=0)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--queue", type=int, default=8)
     ap.add_argument("--softam", action="store_true",
@@ -111,8 +122,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--export-poses", default=None,
                     help="write the served pose of each distinct frame as "
                          "a 7-Scenes pose file frame-NNNNNN.pose.txt here")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    args, args.cfg, strings = parse_with_flags(ap, argv)
+    apply_model_flags(args, strings)
     if args.softam and args.verify_topk:
         print(blue("NOTE: --verify-topk is a no-op with --softam (the "
                    "soft-argmax average IS the served pose; there is no "
@@ -128,6 +139,7 @@ class Staged(NamedTuple):
     device: torch.device
     images: torch.Tensor  # (Q, B, H, W, 3) RGB in [0, 255]
     gt: Pose  # (Q * B,) ground-truth scene -> eye poses
+    source: object  # the frame source (cli/common.py)
     net: torch.nn.Module  # the coordinate net of --arch
     coord_fn: Callable  # (images, pix) -> (B, N, 3) metres
     score_net: ScoreNet | None  # with --no-fused-scoring and a score CNN
@@ -135,33 +147,30 @@ class Staged(NamedTuple):
 
 
 def stage(args: argparse.Namespace) -> Staged:
-    """Render the queue, load the weights, and bind the serve config."""
+    """Render the queue, load the weights, and bind the serve config:
+    the flags' config with argmax selection (unless -rdraw is given) and
+    ``--attempts`` attempts."""
     device = resolve_device(args.device)
-    data = DataConfig()
-    scene = SyntheticScene(data.image_width, data.image_height,
-                           data.focal_length, device=device)
-    n_poses = scene.bench_poses.t.shape[0]
-    if not 1 <= args.synthetic <= n_poses:
-        raise SystemExit(f"--synthetic must be in 1..{n_poses}")
-    cam = data.camera()
-    pose = PoseConfig(num_hypotheses=256, random_draw=False,
-                      sample_attempts=args.attempts)
+    pose = dataclasses.replace(
+        args.cfg.pose, sample_attempts=args.attempts,
+        random_draw="rdraw" in args.flags_given
+        and args.cfg.pose.random_draw)
     if args.two_phase_budget is not None:
         pose = dataclasses.replace(pose,
                                    two_phase_budget=args.two_phase_budget)
-    cfg = DSACConfig(data=data, pose=pose)
+    cfg = DSACConfig(data=args.cfg.data, pose=pose)
+    cam = cfg.data.camera()
+    source = frame_source(args, cfg, device)
     models = load_eval_models(args, cfg, device, args.softam,
                               score_cnn=not args.fused_scoring)
     net = models.coord_net
 
     B, Q = args.batch, args.queue
-    frame = torch.arange(B * Q, device=device) % args.synthetic
-    gt = Pose(scene.bench_poses.R[frame], scene.bench_poses.t[frame])
+    frame = [i % len(source) for i in range(B * Q)]
+    gt = Pose(source.poses.R[frame], source.poses.t[frame])
     with torch.no_grad():
-        images = torch.stack([
-            scene.render(Pose(gt.R[q * B:(q + 1) * B],
-                              gt.t[q * B:(q + 1) * B]))[0]
-            for q in range(Q)])
+        images = torch.stack([source.batch(frame[q * B:(q + 1) * B])[0]
+                              for q in range(Q)])
 
     coord_fn = coord_fn_for(net, cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -175,8 +184,8 @@ def stage(args: argparse.Namespace) -> Staged:
             sampling="two_phase" if args.two_phase else True,
             fused_refine=args.fused_refine, softam=args.softam)
 
-    return Staged(device, images, gt, net, coord_fn, models.score_net,
-                  serve_batch)
+    return Staged(device, images, gt, source, net, coord_fn,
+                  models.score_net, serve_batch)
 
 
 def main(argv=None) -> dict:
@@ -211,9 +220,11 @@ def main(argv=None) -> dict:
     if args.export_poses:
         pose_dir = Path(args.export_poses)
         pose_dir.mkdir(parents=True, exist_ok=True)
-        for i in range(min(args.synthetic, Q * B)):  # the distinct frames
+        translation = st.source.translation
+        for i in range(min(len(st.source), Q * B)):  # the distinct frames
             write_pose_file(pose_dir / f"frame-{i:06d}.pose.txt",
-                            out.R[i].cpu().numpy(), out.t[i].cpu().numpy())
+                            out.R[i].cpu().numpy(), out.t[i].cpu().numpy(),
+                            translation)
     rot, trans = pose_errors(out, st.gt)
     correct = is_correct(out, st.gt)
     result = {
@@ -233,7 +244,9 @@ def main(argv=None) -> dict:
         "batch": B, "queue": Q, "verify_topk": args.verify_topk,
         "fused_refine": args.fused_refine,
         "attempts": args.attempts, "reps": args.reps,
-        "frames": args.synthetic,
+        "frames": len(st.source),
+        "scene": st.source.name,
+        "frame_set": st.source.frame_set,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "launches": {name: fn.launches for name, fn in KERNELS.items()},

@@ -1,9 +1,12 @@
 """Evaluation over the fixture frames (port of dsac_tpu/cli/test_ransac.py
 and test_ransac_softam.py, single device, without ``--mesh``).
 
-Renders ``--synthetic N`` frames of the default room at the bench poses
-(data/room_default.json, the ground truth) and runs the reference's
-test_ransac forward pass on each frame: the coordinate net of ``--arch``
+Takes the frames of ``--data`` (a 7-Scenes-layout split; its intrinsics
+and ``rd`` from ``-c DIR/default.config`` and the reference's short
+flags: -rI, -rdraw, ...) or ``--synthetic N`` frames of the archetype
+``--scene`` of the frame set of ``--seed`` (cli/common.py; seed 0, the
+default, is the bench poses of data/room_default.json) and runs the
+reference's test_ransac forward pass on each frame: the coordinate net of ``--arch``
 (cli/serve.py) -> fixed-T sampling
 of 256 hypotheses with 16 attempts, every attempt polished by the PyTorch
 P3P solver -> the diff-map kernel and the score CNN (or, with
@@ -13,7 +16,8 @@ launch of the refine kernel with ``--fused-refine``, else the PyTorch
 IRLS; with ``--refine-variant hard``, the hard-threshold ablation in
 PyTorch) -> the winner: drawn from the score softmax (``--rdraw 1``) or
 its argmax (``--rdraw 0``), or with ``--select inlier`` the refined
-hypothesis with the largest inlier count.  ``--softam`` (or
+hypothesis with the largest inlier count.  ``--rdraw`` and the
+reference's ``-rdraw`` are one setting; the long option wins.  ``--softam`` (or
 ``test_ransac_softam``) evaluates the soft-argmax variant instead: the
 softmax average of the pool, refined alone; as in the reference it
 ignores ``--fused-scoring``, ``--refine-variant hard`` and ``--select
@@ -21,9 +25,12 @@ inlier``.  Frame i draws from a generator seeded with
 ``--seed * 131 + i``, as the reference keys it.
 
 The nets come from ``--model`` (cli/common.py): without ``--out``, the
-committed artifacts.  With ``--out``, the per-frame log and the summary
-(utils/logging.py:TestLog) are written there, under the reference's tag.
-``--export-poses DIR`` writes each served pose as a 7-Scenes pose file.
+committed artifacts; ``-omodel``/``-smodel`` name others.  With
+``--out``, the per-frame log and the summary (utils/logging.py:TestLog)
+are written there, under the reference's tag.  ``--export-poses DIR``
+writes each served pose as a 7-Scenes pose file; poses of a dataset are
+written with its translation.txt offset re-added, as the reference
+writes them.
 
 ``--check-refine`` (with ``--fused-refine``, DSAC, soft refinement) also
 refines each pool with ``refine_pose_fused_steps`` (one launch of the
@@ -32,18 +39,27 @@ largest gap to the single-launch refine kernel at the served hypothesis.
 
 Prints one JSON line: the reference's summary (accuracy at 5 cm / 5 deg,
 median errors, mean and spread of the expected loss and of the entropy),
-the variant and tag, each kernel's launch count, and the seconds the
-frames took (rendering included, the model's loading not).  ``main``
+the variant and tag, the scene (``"data"`` with ``--data``) and which
+frames were evaluated (``frame_set``), each kernel's launch count, and
+the seconds the frames took (rendering or decoding included, the model's
+loading not).  ``main``
 returns that line's dict and, under ``"final"``, the served poses.
 
     python -m dsac_tpu_torch.cli.test_ransac --synthetic 64 --fused-refine
     python -m dsac_tpu_torch.cli.test_ransac_softam --fused-refine
     python -m dsac_tpu_torch.cli.test_ransac --arch patch --fused-refine
+    python -m dsac_tpu_torch.cli.test_ransac --scene clutter --synthetic 24 \
+        --seed 99 --fused-refine -rdraw 0 \
+        --weights artifacts/coord_e2e_clutter.npz \
+        --score-weights artifacts/score_e2e_clutter.npz
+    python -m dsac_tpu_torch.cli.test_ransac --data DIR/test/synth \
+        -c DIR/default.config --fused-refine -rdraw 0
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -52,13 +68,15 @@ import numpy as np
 import torch
 
 from dsac_tpu_torch import resolve_device
-from dsac_tpu_torch.cli.common import (add_arch_args, add_model_args,
-                                       coord_fn_for, load_eval_models)
+from dsac_tpu_torch.cli.common import (add_arch_args, add_data_args,
+                                       add_model_args, apply_model_flags,
+                                       coord_fn_for, frame_source,
+                                       load_eval_models)
 from dsac_tpu_torch.cli.serve import KERNELS
-from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
+from dsac_tpu_torch.config import DSACConfig, PoseConfig
 from dsac_tpu_torch.data.seven_scenes import (pose_to_7scenes_vec6,
                                               write_pose_file)
-from dsac_tpu_torch.data.synthetic import SyntheticScene
+from dsac_tpu_torch.flags import parse_with_flags
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.ops.gn_cuda import refine_pose_fused_steps
 from dsac_tpu_torch.pipeline import (evaluate_frame, process_frames_batched,
@@ -68,8 +86,7 @@ from dsac_tpu_torch.utils.logging import TestLog, green, red
 
 def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--synthetic", type=int, default=64,
-                    help="fixture frames to evaluate (at most 64)")
+    add_data_args(ap, synthetic=64, seed=0)
     ap.add_argument("--softam", action="store_true", default=softam,
                     help="the soft-argmax variant (test_ransac_softam); "
                          "ignores --fused-scoring, --refine-variant hard "
@@ -88,9 +105,10 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
     ap.add_argument("--select", choices=["score", "inlier"], default="score",
                     help="winner: the pre-refinement score draw or argmax, "
                          "or the largest post-refinement inlier count")
-    ap.add_argument("--rdraw", type=int, choices=[0, 1], default=1,
+    ap.add_argument("--rdraw", type=int, choices=[0, 1], default=None,
                     help="1: draw the winner from the score softmax; "
-                         "0: argmax (PoseConfig.random_draw)")
+                         "0: argmax (PoseConfig.random_draw); default: "
+                         "the reference's -rdraw, else 1")
     ap.add_argument("--check-refine", action="store_true",
                     help="with --fused-refine: also refine each pool "
                          "stepwise and report the gap")
@@ -100,8 +118,13 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda")
     add_arch_args(ap)
     add_model_args(ap)
-    ap.add_argument("--seed", type=int, default=0)
-    return ap.parse_args(argv)
+    args, cfg, strings = parse_with_flags(ap, argv)
+    if args.rdraw is None:
+        args.rdraw = int(cfg.pose.random_draw)
+    args.cfg = DSACConfig(data=cfg.data, pose=dataclasses.replace(
+        cfg.pose, random_draw=bool(args.rdraw)))
+    apply_model_flags(args, strings)
+    return args
 
 
 def eval_tag(args: argparse.Namespace, coord_src: str, H: int) -> str:
@@ -141,16 +164,10 @@ def main(argv=None, softam: bool = False) -> dict:
         raise SystemExit("--check-refine needs --fused-refine, DSAC and "
                          "--refine-variant soft")
     device = resolve_device(args.device)
-    data = DataConfig()
-    scene = SyntheticScene(data.image_width, data.image_height,
-                           data.focal_length, device=device)
-    n_poses = scene.bench_poses.t.shape[0]
-    if not 1 <= args.synthetic <= n_poses:
-        raise SystemExit(f"--synthetic must be in 1..{n_poses}")
-    cam = data.camera()
-    cfg = DSACConfig(data=data, pose=PoseConfig(
-        num_hypotheses=256, random_draw=bool(args.rdraw)))
+    cfg = args.cfg
+    cam = cfg.data.camera()
     p = cfg.pose
+    source = frame_source(args, cfg, device)
     models = load_eval_models(args, cfg, device, args.softam,
                               score_cnn=not fused_scoring)
     coord_fn = coord_fn_for(models.coord_net, cfg)
@@ -164,10 +181,8 @@ def main(argv=None, softam: bool = False) -> dict:
     served = []
     t0 = time.perf_counter()
     with torch.no_grad():
-        for i in range(args.synthetic):
-            gt = Pose(scene.bench_poses.R[i:i + 1],
-                      scene.bench_poses.t[i:i + 1])
-            image = scene.render(gt)[0]
+        for i in range(len(source)):
+            image, gt = source.batch([i])
             gen = torch.Generator(device=device).manual_seed(
                 args.seed * 131 + i)
             res = process_frames_batched(
@@ -189,9 +204,10 @@ def main(argv=None, softam: bool = False) -> dict:
             R, t = served[-1].R.numpy(), served[-1].t.numpy()
             if log is not None:
                 log.frame(exps[-1], ents[-1], winners[-1], te, rot,
-                          pose_to_7scenes_vec6(R, t))
+                          pose_to_7scenes_vec6(R, t, source.translation))
             if args.export_poses:
-                write_pose_file(pose_dir / f"frame-{i:06d}.pose.txt", R, t)
+                write_pose_file(pose_dir / f"frame-{i:06d}.pose.txt", R, t,
+                                source.translation)
             if args.check_refine:
                 checks.append(check_refine(res, cam, p))
             colour = green if (rot < 5.0 and te < 50.0) else red
@@ -210,6 +226,8 @@ def main(argv=None, softam: bool = False) -> dict:
         "all_finite": bool(np.isfinite([rots, trans, exps, ents]).all()),
         "variant": "softam" if args.softam else "dsac", "tag": tag,
         "arch": args.arch,
+        "scene": source.name,
+        "frame_set": source.frame_set,
         "model": args.model, "coord_src": models.coord_src,
         "score_src": models.score_src,
         "scoring": "fused_soft" if fused_scoring else "cnn",

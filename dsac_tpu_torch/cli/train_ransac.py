@@ -1,9 +1,14 @@
 """End-to-end DSAC training on one GPU (port of dsac_tpu/cli/train_ransac.py,
 its single-chip loop, :391-404).
 
-Each round renders one training view of the default room, at a pose
-chosen at random from ``--synthetic`` views that ``random_pose`` draws
-from ``--seed``, and takes one joint SGD step of both nets on the
+Each round takes one training frame chosen at random: of ``--data`` (a
+7-Scenes-layout split; ``-c DIR/default.config`` and the reference's
+short flags set its intrinsics and ``rd``), or of the ``--synthetic``
+frames of the archetype ``--scene`` of the frame set of ``--seed``
+(cli/common.py; for the default seed 1305 the views that ``random_pose``
+draws from it, rendered with the scene's effects, which are the same
+each time a frame comes round).  It takes one joint SGD step of both
+nets on the
 objective of ``--softam`` or DSAC (pipeline/train.py:e2e_step): SGD 1e-5
 for the coordinate net and 1e-7 for the score net, momentum 0.9, global
 norm clip 10, coordinate gradients clamped at +-0.1.  The nets start from
@@ -12,7 +17,8 @@ the port's ``obj_model_init`` and ``score_model_init`` snapshots in
 generator.  A run resumes from its own snapshots: parameters, optimizer
 states, the round and the numpy generator of the view schedule.  With
 ``--validate-every`` the nets are evaluated on ``--validate-frames``
-views of seed 777, and ``*_best`` snapshots keep the best.
+frames of the same scene of seed 777 (with ``--data``, the training
+frames, as the reference does), and ``*_best`` snapshots keep the best.
 
 The reference's ``--mesh``, ``--steps-per-call``, ``--stage-frames``,
 ``--score-head soft`` and ``--score-temp`` are not ported and are refused
@@ -28,11 +34,15 @@ ms per round after the first, peak device memory, and the snapshots.
     python -m dsac_tpu_torch.cli.train_ransac --rounds 100
     python -m dsac_tpu_torch.cli.train_ransac --softam --rounds 100
     python -m dsac_tpu_torch.cli.train_ransac --arch patch --rounds 100
+    python -m dsac_tpu_torch.cli.train_ransac --scene clutter --rounds 100
+    python -m dsac_tpu_torch.cli.train_ransac --data DIR/training/synth \
+        -c DIR/default.config --rounds 100
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import statistics
@@ -44,10 +54,12 @@ import numpy as np
 import torch
 
 from dsac_tpu_torch import resolve_device
-from dsac_tpu_torch.cli.common import add_arch_args, coord_fn_for
+from dsac_tpu_torch.cli.common import (SyntheticSource, add_arch_args,
+                                       add_data_args, coord_fn_for,
+                                       frame_source)
 from dsac_tpu_torch.cli.serve import KERNELS
-from dsac_tpu_torch.config import DataConfig, DSACConfig, PoseConfig
-from dsac_tpu_torch.data.synthetic import SyntheticScene
+from dsac_tpu_torch.config import DSACConfig
+from dsac_tpu_torch.flags import parse_with_flags
 from dsac_tpu_torch.models import (ScoreNet, coord_net_for_state,
                                    init_like_flax, load_exact)
 from dsac_tpu_torch.models.coord_net import coord_apply, make_coord_net
@@ -77,11 +89,11 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
                     help="pipeline/forward.py:make_refiners; auto is "
                          "implicit on CUDA and unroll on the CPU")
     ap.add_argument("--score-anchor", type=float, default=0.0)
-    ap.add_argument("--synthetic", type=int, default=16,
-                    help="training views drawn by random_pose")
+    add_data_args(ap, synthetic=16, seed=1305)
     add_arch_args(ap)
-    ap.add_argument("--hypotheses", type=int, default=256)
-    ap.add_argument("--seed", type=int, default=1305)
+    ap.add_argument("--hypotheses", type=int, default=None,
+                    help="hypotheses a frame; default: the reference's "
+                         "-rI, else 256")
     ap.add_argument("--out", default="./out")
     ap.add_argument("--device", default="cuda")
     given = sys.argv[1:] if argv is None else argv
@@ -89,7 +101,9 @@ def parse_args(argv=None, softam: bool = False) -> argparse.Namespace:
     if refused:
         raise SystemExit(f"{', '.join(refused)}: not ported to "
                          "dsac_tpu_torch (ROADMAP.md)")
-    args = ap.parse_args(argv)
+    args, cfg, _strings = parse_with_flags(ap, argv)
+    args.cfg = DSACConfig(data=cfg.data, pose=dataclasses.replace(
+        cfg.pose, num_hypotheses=args.hypotheses or cfg.pose.num_hypotheses))
     if args.rounds is not None:
         args.training_rounds = args.rounds
     if args.score_anchor > 0 and args.softam:
@@ -122,15 +136,9 @@ def _snapshot(out: str, name: str, net, opt, step: int, keep: int = 3):
 def main(argv=None, softam: bool = False) -> dict:
     args = parse_args(argv, softam)
     device = resolve_device(args.device)
-    data = DataConfig()
-    cfg = DSACConfig(data=data,
-                     pose=PoseConfig(num_hypotheses=args.hypotheses))
-    cam = data.camera()
-    scene = SyntheticScene(data.image_width, data.image_height,
-                           data.focal_length, device=device)
-    views = scene.random_pose(
-        torch.Generator(device=device).manual_seed(args.seed),
-        args.synthetic)
+    cfg = args.cfg
+    cam = cfg.data.camera()
+    source = frame_source(args, cfg, device)
     rng = np.random.default_rng(args.seed)
 
     wm = args.width_mult
@@ -176,19 +184,18 @@ def main(argv=None, softam: bool = False) -> dict:
         sidecar.write_text(json.dumps(
             {"round": rnd, "state": rng.bit_generator.state, "best": best}))
 
-    val_poses = scene.random_pose(
-        torch.Generator(device=device).manual_seed(VALIDATION_SEED),
-        args.validate_frames)
+    # the same scene as training (the archetypes), views of another seed
+    val_source = (source if args.data else SyntheticSource(
+        args.validate_frames, VALIDATION_SEED, source.scene))
 
     def validate() -> tuple[float, float]:
         correct, exps = [], []
         with torch.no_grad():
-            for i in range(args.validate_frames):
-                gt = type(val_poses)(val_poses.R[i:i + 1],
-                                     val_poses.t[i:i + 1])
+            for i in range(min(args.validate_frames, len(val_source))):
+                image, gt = val_source.batch([i])
                 gen = torch.Generator(device=device).manual_seed(7000 + i)
                 res = process_frames_batched(
-                    scene.render(gt)[0],
+                    image,
                     coord_fn_for(coord_net, cfg),
                     cam, cfg, generator=gen, scoring="cnn",
                     score_fn=score_net, sampling=False, refine_all=True,
@@ -208,13 +215,12 @@ def main(argv=None, softam: bool = False) -> dict:
     rounds, snapshots = [], []
     with log, val_log:
         for rnd in range(start, args.training_rounds):
-            i = int(rng.integers(args.synthetic))
-            gt = type(views)(views.R[i:i + 1], views.t[i:i + 1])
+            i = int(rng.integers(len(source)))
             gen = torch.Generator(device=device).manual_seed(
                 int(rng.integers(2 ** 31)))
             before = {k: w.launches for k, w in KERNELS.items()}
             t0 = time.perf_counter()
-            image = scene.render(gt)[0]
+            image, gt = source.batch([i])
             state, loss, aux = e2e_step(
                 state, image, gt, cam, cfg, coord_apply=coord_apply_,
                 softam=args.softam,
@@ -261,6 +267,8 @@ def main(argv=None, softam: bool = False) -> dict:
     later = [r["seconds"] * 1e3 for r in rounds[1:]]
     result = {
         "metric": "train_ransac", "objective": tag, "arch": args.arch,
+        "scene": source.name,
+        "frame_set": source.frame_set, "frames": len(source),
         "refine_mode": refine_mode, "start_round": start,
         "rounds": rounds, "snapshots": snapshots,
         "ms_per_round_median": statistics.median(later) if later else None,

@@ -23,6 +23,7 @@ from dsac_tpu_torch.models.coord_net import (DenseCoordNet, _same_pads,
 from dsac_tpu_torch.utils.params_io import (coord_net_from_flax,
                                             load_coord_net_npz,
                                             load_params_npz)
+from torch_problems import one_torch_thread  # noqa: F401
 
 WEIGHTS = Path(__file__).resolve().parent.parent / "artifacts" / \
     "coord_e2e.npz"

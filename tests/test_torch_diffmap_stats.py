@@ -32,7 +32,7 @@ from dsac_tpu_torch.ops.diffmap_cuda import diffmaps, diffmaps_ref
 from dsac_tpu_torch.ops.gn_cuda import (irls_stats, irls_stats_ref,
                                         refine_pose_fused_steps,
                                         unpack_stats)
-from torch_problems import T, frames
+from torch_problems import T, frames, one_torch_thread  # noqa: F401
 
 JCAM = JCamera.make(525.0, 640, 480)
 CAM = Camera.make(525.0, 640, 480)

@@ -27,6 +27,7 @@ from dsac_tpu_torch.config import Camera
 from dsac_tpu_torch.geometry import gn as tgn
 from dsac_tpu_torch.geometry import p3p as tp3p
 from dsac_tpu_torch.geometry.pose import Pose
+from torch_problems import one_torch_thread  # noqa: F401
 
 JCAM = JCamera.make(525.0, 640, 480)
 CAM = Camera.make(525.0, 640, 480)

@@ -25,8 +25,17 @@ def imported_modules(path: Path) -> list[str]:
     return names
 
 
+# the data layer's modules, which the checks below must reach
+DATA_LAYER = ("flags.py", "data/synthetic.py", "data/seven_scenes.py",
+              "utils/native_io.py", "cli/common.py",
+              "cli/export_synthetic.py", "cli/link_7scenes.py")
+
+
 def test_files_are_found():
     assert len(FILES) > 20
+    found = {str(p.relative_to(ROOT / "dsac_tpu_torch")) for p in FILES
+             if p.is_relative_to(ROOT / "dsac_tpu_torch")}
+    assert set(DATA_LAYER) <= found
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

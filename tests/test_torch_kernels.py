@@ -33,7 +33,7 @@ from dsac_tpu_torch.ops.diffmap_cuda import (soft_inlier_scores,
 from dsac_tpu_torch.ops.gn_cuda import (refine_pose_fused,
                                         refine_pose_fused_ref)
 from dsac_tpu_torch.ops.p3p_cuda import p3p_solve, p3p_solve_ref
-from torch_problems import T, frames
+from torch_problems import T, frames, one_torch_thread  # noqa: F401
 
 JCAM = JCamera.make(525.0, 640, 480)
 CAM = Camera.make(525.0, 640, 480)

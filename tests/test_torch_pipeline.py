@@ -37,6 +37,7 @@ from dsac_tpu_torch.geometry.loss import pose_errors
 from dsac_tpu_torch.geometry.pose import Pose
 from dsac_tpu_torch.pipeline import (FrameDraws, process_frame,
                                      process_frames_batched)
+from torch_problems import one_torch_thread  # noqa: F401
 
 B, W, HGT, FOCAL, G, NH, T, TOPK = 2, 160, 120, 130.0, 12, 64, 4, 4
 POSE_KW = dict(num_hypotheses=NH, sample_attempts=T, random_draw=False)

@@ -71,7 +71,7 @@ from dsac_tpu_torch.pipeline import (FrameDraws, FrameResult,
                                      verified_selection)
 from dsac_tpu_torch.utils.params_io import score_net_from_flax
 from test_torch_score_net import flax_params
-from torch_problems import random_score_flat
+from torch_problems import random_score_flat, one_torch_thread  # noqa: F401
 
 ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
 B, W, HGT, FOCAL, G, NH, T, TOPK = 2, 160, 120, 130.0, 40, 64, 4, 4

@@ -26,7 +26,7 @@ from dsac_tpu_torch.models.score_net import ScoreNet
 from dsac_tpu_torch.utils.params_io import (load_params_npz,
                                             load_score_net_npz,
                                             score_net_from_flax)
-from torch_problems import random_score_flat
+from torch_problems import random_score_flat, one_torch_thread  # noqa: F401
 
 WEIGHTS = Path(__file__).resolve().parent.parent / "artifacts" / \
     "score_e2e.npz"

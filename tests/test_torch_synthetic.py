@@ -24,6 +24,7 @@ from dsac_tpu.data.synthetic import SyntheticScene as JaxScene
 from dsac_tpu_torch.data.synthetic import FIXTURE, SyntheticScene
 from dsac_tpu_torch.geometry.gn import PERM_FIXTURE, hard_permutation
 from dsac_tpu_torch.geometry.pose import Pose
+from torch_problems import one_torch_thread  # noqa: F401
 
 N_BENCH = 64  # bench.py serves keys 9000 .. 9063 (queue 8 x batch 8)
 N_PIXELS = 1600  # the 40 x 40 grid of NetConfig.subsample_size
